@@ -1,0 +1,500 @@
+"""Drive the port's stage-2 path once on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, each printing one JSON line with the elapsed seconds:
+  device   nvidia-smi name and power limit, capability (9.x required),
+           torch and nvcc versions
+  build    nvcc builds pepr_tpu_torch/csrc/pruning.cu for sm_90a into
+           the git-ignored pepr_tpu_torch/_build/
+  data     the seeded 53-taxon dataset: 405 WAG+Gamma(0.5) families of
+           100-250 columns, 64,433 concatenated columns, ~10% of the
+           taxa absent from each family
+  kernels  each kernel against its plain PyTorch version on the card,
+           with times over repeated launches, at the slice shape (4
+           trees x 8,192 sites) and at the shapes the main path gives
+           the kernels: the full tree (1 x 64,433 sites), a block of
+           jackknife replicates on their compacted per-replicate codes,
+           and a batch of SPR candidates scored against the full width
+  small    run_stage2_aligned on a small input on the card and on the
+           CPU (plain path): same topology and supports
+  stage2   run_stage2_aligned at full width and the pipeline's default
+           depth (`ml` full tree, SUPPORT_REPS jackknife replicates);
+           launch counts are reset just before and read just after,
+           and the run must have made an SPR sweep
+  profile  torch.profiler's device time by kernel over a second,
+           shallower stage-2 run (fast_ml, PROFILE_REPS replicates), so
+           the stage2 time above carries no profiler overhead
+Then one JSON line with every kernel's numbers, the nvidia-smi line,
+and the result line.  Any failure ends the run with a non-zero exit;
+without a CUDA device it exits 2 and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import subprocess
+import sys
+import time
+
+T0 = time.time()
+
+# published peaks of one H100 SXM (dense): float32 outside the tensor
+# cores, and HBM bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+N_TAXA = 53
+N_FAMILIES = 405
+N_COLUMNS = 64433
+KERNEL_SITES = 8192
+KERNEL_TREES = 4
+SUPPORT_REPS = 100  # the pipeline's default
+PROFILE_REPS = 8
+PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
+# version (one every SCORE_BATCH / PLAIN_SPR_TREES)
+FWD_RTOL = 1e-5  # per-site LL, elementwise (plus 1e-5 absolute)
+BWD_RTOL = 1e-4  # gradient, max |diff| over max |ref| (summation order)
+
+
+def phase(label: str, **info) -> None:
+    print(json.dumps({"phase": label,
+                      "elapsed_s": round(time.time() - T0, 3), **info}),
+          flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median per-call milliseconds over `reps` calls (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def family_lengths(rng):
+    """405 lengths in [100, 250] summing to 64,433."""
+    import numpy as np
+    extra = rng.multinomial(N_COLUMNS - 100 * N_FAMILIES,
+                            np.full(N_FAMILIES, 1.0 / N_FAMILIES))
+    if extra.max() > 150:
+        fail("family length draw out of range")
+    return 100 + extra
+
+
+def edge_counts(children, n_leaves):
+    """(internal-child edges, leaf edges) of a kernel children array."""
+    kids = children[children >= 0]
+    return int((kids >= n_leaves).sum()), int((kids < n_leaves).sum())
+
+
+def kernel_bounds(B, n_leaves, n_int, L, C, children, code_bytes):
+    """Least time (ms) the card could take for each kernel's work, from
+    the bytes each must move (inputs once, outputs once) and the FLOPs
+    its algorithm needs on these inputs; returns {name: (ms, by)}."""
+    V = n_leaves + n_int
+    e_int, e_leaf = edge_counts(children, n_leaves)
+    in_bytes = code_bytes + B * n_int * 3 * 4 + B * C * V * 400 * 4 + 80
+    # forward: P . D for internal children (2*400 per state vector),
+    # a column gather for leaves, the 20-state product per edge
+    f_fwd = B * C * L * (800 * e_int + 20 * (e_int + e_leaf))
+    b_fwd = in_bytes + B * L * 4
+    # backward: forward recompute, child messages and upper-message
+    # pushes (P^T) for internal children, outer products for internal
+    # edges, a 20-value scatter for leaf edges
+    f_bwd = f_fwd + B * C * L * (2 * 800 * e_int + 20 * e_leaf)
+    b_bwd = in_bytes + B * L * 4 + B * C * V * 400 * 4
+    out = {}
+    for name, f, b in (("pruning_fwd", f_fwd, b_fwd),
+                       ("pruning_bwd", f_bwd, b_bwd)):
+        t_ops, t_bytes = f / PEAK_F32_FLOPS, b / PEAK_BYTES
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def timed(fn):
+    """(fn(), milliseconds) for one call, by CUDA events."""
+    import torch
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
+                  reps=5):
+    """Both wrappers (the gradient only if `grad`) against their plain
+    versions on the same card tensors, tree by tree for the plain side
+    (`plain_trees`: the trees held against it, default all); returns
+    {kernel: numbers} and fails the run beyond tolerance."""
+    import torch
+    from pepr_tpu_torch.ops import pruning
+
+    B, n_int = ch.shape[:2]
+    L = codes.shape[-1]
+    trees = list(range(B)) if plain_trees is None else list(plain_trees)
+
+    def one(b):
+        return codes if codes.dim() == 2 else codes[b:b + 1]
+
+    def plain_fwd():
+        return torch.cat([pruning.site_ll_reference(
+            one(b), ch[b:b + 1], pm[b:b + 1], pi) for b in trees])
+
+    def plain_bwd(g_k):
+        with torch.no_grad():
+            d_max = r_max = 0.0
+            for b in trees:
+                g_r = pruning.site_ll_grad_reference(
+                    one(b), ch[b:b + 1], pm[b:b + 1], pi, ct[b:b + 1])
+                d_max = max(d_max, float((g_k[b] - g_r[0]).abs().max()))
+                r_max = max(r_max, float(g_r.abs().max()))
+                del g_r
+            return d_max, r_max
+
+    bounds = kernel_bounds(B, N_TAXA, n_int, L, pm.shape[1],
+                           ch[0].cpu().numpy(), codes.numel())
+    ll_k = pruning.pruning_fwd(codes, ch, pm, pi)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ll_r, plain_ms = timed(plain_fwd)
+    d = (ll_k[trees] - ll_r).abs()
+    out = {"pruning_fwd": dict(
+        max_abs_err=float(d.max()),
+        max_rel_err=float((d / (ll_r.abs() + 1.0)).max()), tol=FWD_RTOL,
+        ms=time_ms(lambda: pruning.pruning_fwd(codes, ch, pm, pi), reps),
+        plain_ms=plain_ms, plain_trees=len(trees))}
+    ok = bool(torch.isfinite(ll_k).all()) and bool(
+        (d <= FWD_RTOL * ll_r.abs() + 1e-5).all())
+    del ll_k, ll_r, d
+    if not ok:
+        fail(f"pruning_fwd disagrees with its plain version: "
+             f"{out['pruning_fwd']}")
+    if grad:
+        g_k = pruning.pruning_bwd(codes, ch, pm, pi, ct)
+        torch.cuda.synchronize()
+        (d_max, r_max), plain_ms = timed(lambda: plain_bwd(g_k))
+        out["pruning_bwd"] = dict(
+            max_abs_err=d_max, max_rel_err=d_max / r_max, tol=BWD_RTOL,
+            ms=time_ms(lambda: pruning.pruning_bwd(codes, ch, pm, pi, ct),
+                       reps),
+            plain_ms=plain_ms, plain_trees=len(trees))
+        ok = bool(torch.isfinite(g_k).all()) and d_max / r_max <= BWD_RTOL
+        del g_k
+        if not ok:
+            fail(f"pruning_bwd disagrees with its plain version: "
+                 f"{out['pruning_bwd']}")
+    for k, v in out.items():
+        v["bound_ms"], v["bound_by"] = bounds[k]
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_time(prof, wall: float) -> dict:
+    """Device time by kernel name from a torch.profiler run, and the
+    device's busy share of the wall time."""
+    by_name = {}
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies); host ops report the
+        # device time of what they launched, which would count it twice
+        if str(getattr(ev, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            by_name[ev.key] = (us / 1e6, ev.count)
+    device_s = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(wall_s=round(wall, 3), device_s=round(device_s, 3),
+                device_busy_share=round(device_s / wall, 4),
+                top=[dict(name=k[:60], seconds=round(v[0], 4), calls=v[1])
+                     for k, v in top])
+
+
+class _Messages(logging.Handler):
+    """Collects the port's log messages (search progress)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from pepr_tpu_torch.device import resolve_device
+    from pepr_tpu_torch.models.concat import concatenate
+    from pepr_tpu_torch.models.msa import Alignment
+    from pepr_tpu_torch.models.support import jackknife_gene_masks
+    from pepr_tpu_torch.models.treebuild import (SCORE_BATCH, _postorder_fix,
+                                                 _remap_blen, _spr_candidates)
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
+                                               transition_matrices,
+                                               tree_to_arrays)
+    from pepr_tpu_torch.parallel.replicates import BLOCK_REPS, replicate_codes
+    from pepr_tpu_torch.pipeline.stage2 import (Stage2Config,
+                                                run_stage2_aligned)
+    from pepr_tpu_torch.tree import rf_distance
+    from pepr_tpu_torch.tree.bipartition import bipartitions, taxon_index
+    from pepr_tpu_torch.utils.simulate import random_tree, simulate_families
+
+    # -- device
+    smi = smi_line()
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    nvcc_ver = subprocess.run([pruning.find_nvcc(), "--version"],
+                              capture_output=True, text=True, timeout=60,
+                              check=True).stdout.strip().splitlines()[-1]
+    phase("device", nvidia_smi=smi, name=name, capability=list(cap),
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda, nvcc=nvcc_ver)
+    if cap[0] != 9:
+        fail(f"needs a Hopper card (capability 9.x), got {cap}")
+    dev = resolve_device("cuda")
+
+    # -- build
+    t = time.time()
+    log = pruning.build(force=True)
+    pruning.library()
+    phase("build", seconds=round(time.time() - t, 3),
+          ptxas=[ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln])
+
+    # -- data
+    rng = np.random.default_rng(args.seed)
+    taxa = [f"taxon{i:02d}" for i in range(N_TAXA)]
+    truth = random_tree(taxa, rng)
+    fams = simulate_families(truth, family_lengths(rng), rng, alpha=0.5,
+                             absent=0.1)
+    alignments = [Alignment(n, t_, c) for n, t_, c in fams]
+    cat = concatenate(alignments, taxa)
+    phase("data", taxa=N_TAXA, families=len(alignments), columns=cat.length)
+    if cat.length != N_COLUMNS:
+        fail(f"dataset has {cat.length} columns, expected {N_COLUMNS}")
+
+    # -- kernels: each against its plain version, at the slice shape and
+    # at the shapes the main path gives them
+    model = WagModel.create(alpha=0.5)
+    pi = torch.as_tensor(model.pi, device=dev)
+
+    def tree_batch(trs):
+        arrs = [tree_to_arrays(tr, taxa) for tr in trs]
+        ch = torch.as_tensor(np.stack([a.children for a in arrs]),
+                             device=dev)
+        blen = torch.as_tensor(np.stack([a.blen for a in arrs]), device=dev)
+        return ch, transition_matrices(model, blen).contiguous()
+
+    shapes = {}
+    # slice: 4 trees x 8,192 columns over shared codes, 1% set to X
+    mat = cat.mat[:, :KERNEL_SITES].copy()
+    mat[rng.random(mat.shape) < 0.01] = 22
+    ch, pm = tree_batch([truth] + [random_tree(taxa, rng)
+                                   for _ in range(KERNEL_TREES - 1)])
+    ct = torch.as_tensor(rng.random((KERNEL_TREES, KERNEL_SITES))
+                         .astype(np.float32), device=dev)
+    codes_s = torch.as_tensor(mat, device=dev)
+    # one untimed call first: the plain path's first calls pay for the
+    # libraries' set-up
+    pruning.site_ll_grad_reference(codes_s, ch, pm, pi, ct)
+    shapes["slice"] = dict(
+        trees=KERNEL_TREES, sites=KERNEL_SITES, codes="shared",
+        **check_kernels(codes_s, ch, pm, pi, ct))
+    # full tree: branch-length fitting and LL evaluations of one tree
+    codes_full = torch.as_tensor(cat.mat, device=dev)
+    ch, pm = tree_batch([truth])
+    shapes["full_tree"] = dict(
+        trees=1, sites=cat.length, codes="shared",
+        **check_kernels(codes_full, ch, pm, pi,
+                        torch.ones((1, cat.length), device=dev)))
+    # a block of jackknife replicates, each on its compacted codes with
+    # its weights as the cotangent (as in replicate_blopt)
+    masks = jackknife_gene_masks(cat, SUPPORT_REPS, Stage2Config().seed)
+    codes_r, w_r = replicate_codes(cat.mat, masks[:BLOCK_REPS], dev)
+    if codes_r.dim() != 3:
+        fail("jackknife replicates did not get compacted codes")
+    n_rep = codes_r.shape[0]
+    ch, pm = tree_batch([random_tree(taxa, rng) for _ in range(n_rep)])
+    shapes["replicate_block"] = dict(
+        trees=n_rep, sites=codes_r.shape[-1], codes="per-replicate",
+        **check_kernels(codes_r, ch, pm, pi, w_r, reps=3))
+    del codes_r, w_r
+    # one batch of SPR candidates of the generating tree (forward only:
+    # candidates are scored, not fitted)
+    t = time.time()
+    truth_arr = tree_to_arrays(truth, taxa)
+    spr = _spr_candidates(truth_arr.children, N_TAXA)
+    spr_ch = [_postorder_fix(c, N_TAXA) for c in spr[:SCORE_BATCH]]
+    spr_bl = [_remap_blen(truth_arr.children, c, truth_arr.blen, N_TAXA)
+              for c in spr_ch]
+    spr_host_s = time.time() - t
+    ch = torch.as_tensor(np.stack(spr_ch), device=dev)
+    pm = transition_matrices(model, torch.as_tensor(
+        np.stack(spr_bl), device=dev)).contiguous()
+    n_spr = len(spr_ch)
+    shapes["spr_batch"] = dict(
+        trees=n_spr, sites=cat.length, codes="shared",
+        spr_candidates_of_tree=len(spr), host_s=round(spr_host_s, 3),
+        **check_kernels(codes_full, ch, pm, pi, None, grad=False,
+                        plain_trees=range(0, n_spr,
+                                          max(1, n_spr // PLAIN_SPR_TREES)),
+                        reps=3))
+    del ch, pm, ct, codes_full, codes_s
+    torch.cuda.empty_cache()
+    phase("kernels", cats=len(model.rates), shapes=shapes)
+
+    # -- small: the card path against the CPU's plain path
+    srng = np.random.default_rng(args.seed + 1)
+    stree = random_tree([f"s{i}" for i in range(8)], srng)
+    small = [Alignment(n, t_, c) for n, t_, c in
+             simulate_families(stree, srng.integers(60, 120, size=8), srng)]
+    scfg = Stage2Config(full_tree_method="fast_ml", support_reps=3)
+    on_gpu = run_stage2_aligned(small, scfg, device="cuda")
+    on_cpu = run_stage2_aligned(small, scfg, device="cpu")
+    s_rf = rf_distance(on_gpu.tree, on_cpu.tree)
+    s_sup = sorted(v for v in on_gpu.tree.support if v == v)
+    c_sup = sorted(v for v in on_cpu.tree.support if v == v)
+    s_rel = abs(on_gpu.log_likelihood - on_cpu.log_likelihood) \
+        / abs(on_cpu.log_likelihood)
+    phase("small", rf_gpu_vs_cpu=s_rf, ll_gpu=on_gpu.log_likelihood,
+          ll_cpu=on_cpu.log_likelihood, ll_rel=s_rel,
+          supports_gpu=s_sup, supports_cpu=c_sup)
+    if s_rf != 0 or s_sup != c_sup or not s_rel <= 1e-4:
+        fail("small stage-2 run on the card disagrees with the CPU's")
+
+    # -- stage2 at full width and default depth
+    cfg = Stage2Config(full_tree_method="ml", support_reps=SUPPORT_REPS)
+    phase("stage2_start", config=dict(
+        full_tree_method="ml", nni_rounds=cfg.nni_rounds,
+        bl_steps=cfg.bl_steps, spr_rounds=2, support_reps=cfg.support_reps,
+        support_bl_steps=cfg.support_bl_steps))
+    msgs = _Messages()
+    port_log = logging.getLogger("pepr_tpu_torch")
+    port_log.setLevel(logging.INFO)
+    port_log.addHandler(msgs)
+    torch.cuda.synchronize()
+    pruning.reset_launch_counts()
+    t = time.time()
+    res = run_stage2_aligned(alignments, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(pruning.LAUNCHES)
+    port_log.removeHandler(msgs)
+    search = [m for m in msgs.lines if m.startswith(("ml_tree", "support"))]
+    spr_sweeps = [m for m in search if m.startswith("ml_tree: SPR sweep")]
+    rf = rf_distance(res.full_tree, truth)
+    sup = [v for v in res.tree.support if v == v]
+    # the final tree's LL by the kernel and by the plain path
+    arr = tree_to_arrays(res.full_tree, res.concat.taxa)
+    final = WagModel.create(alpha=res.gamma_alpha)
+    ll_kernel = loglik(res.concat.mat, arr.children, arr.blen, final,
+                       device="cuda")
+    with torch.no_grad():
+        ll_plain = float(pruning.site_ll_reference(
+            torch.as_tensor(res.concat.mat, device=dev),
+            torch.as_tensor(arr.children[None], device=dev),
+            transition_matrices(final, torch.as_tensor(
+                arr.blen[None], device=dev)),
+            torch.as_tensor(final.pi, device=dev)).double().sum())
+    ll_rel = abs(ll_kernel - ll_plain) / abs(ll_plain)
+    phase("stage2", seconds=round(wall, 3), timings=res.timings,
+          gamma_alpha=res.gamma_alpha, log_likelihood=res.log_likelihood,
+          final_ll_kernel=ll_kernel, final_ll_plain=ll_plain,
+          final_ll_rel=ll_rel, rf_vs_generating_tree=rf,
+          n_internal_edges=len(bipartitions(res.full_tree,
+                                            taxon_index(taxa))),
+          supports=sup, launches=launches, search=search)
+    if not np.isfinite(res.log_likelihood) or not ll_rel <= 1e-5:
+        fail("final log-likelihood is not finite or disagrees with the "
+             "plain path")
+    if sorted(res.full_tree.leaf_labels()) != sorted(taxa):
+        fail("full tree does not have the dataset's taxa")
+    if rf > N_TAXA - 3:
+        fail(f"full tree is far from the generating tree (RF {rf})")
+    if not sup or min(sup) < 0 or max(sup) > SUPPORT_REPS:
+        fail(f"supports out of range: {sup}")
+    if not spr_sweeps:
+        fail("the full-tree search made no SPR sweep")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the main path")
+
+    # -- profile: device time by kernel over a shallower stage-2 run
+    from torch.profiler import ProfilerActivity, profile
+    pcfg = Stage2Config(full_tree_method="fast_ml", support_reps=PROFILE_REPS)
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_stage2_aligned(alignments, pcfg, device="cuda")
+        torch.cuda.synchronize()
+    phase("profile", config=dict(full_tree_method="fast_ml",
+                                 support_reps=PROFILE_REPS),
+          **device_time(prof, time.time() - t))
+
+    # the kernels' numbers at the full tree's shape; errors are the
+    # largest over every shape checked
+    def entry(k):
+        at = shapes["full_tree"][k]
+        errs = [v[k] for v in shapes.values() if k in v]
+        return dict(
+            max_abs_err=max(e["max_abs_err"] for e in errs),
+            max_rel_err=max(e["max_rel_err"] for e in errs), tol=at["tol"],
+            ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
+            bound_by=at["bound_by"], shape="full_tree")
+
+    print(json.dumps({"kernels": [
+        dict(name=k, route="cuda", source="pepr_tpu_torch/csrc/pruning.cu",
+             replaces=rep, launches=launches[k], **entry(k),
+             library_ms=None)
+        for k, rep in (
+            ("pruning_fwd", "pepr_tpu/ops/pallas_pruning.py:113"),
+            ("pruning_bwd", "pepr_tpu/ops/pallas_pruning_grad.py:118"))]}),
+        flush=True)
+    print(smi_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,156 @@
+"""Gene-wise jackknife branch supports (PyTorch port of
+`pepr_tpu/models/support.py`).
+
+Each of `reps` support trees is built from a random half of the gene
+families (PhylogenomicPipeline2.java:994-1126).  A replicate is a 0/1
+site-weight vector over the same concatenated alignment, so all
+replicates share the device data; their branch lengths are optimized
+together (`parallel.replicates.replicate_blopt`) and every NNI round
+scores each replicate's whole neighborhood in batched kernel calls.
+The masks come from seeded numpy generators, identical to the JAX
+package's.  Checkpoint and deadline resume are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+
+from pepr_tpu_torch.device import resolve_device
+from pepr_tpu_torch.models.concat import ConcatenatedAlignment
+from pepr_tpu_torch.models.treebuild import (_nni_candidate, _nni_moves,
+                                             _score_topologies, nj_start_tree)
+from pepr_tpu_torch.ops.likelihood import (TreeArrays, WagModel,
+                                           arrays_to_tree, model_tensors,
+                                           tree_to_arrays)
+from pepr_tpu_torch.parallel.replicates import (replicate_blopt,
+                                                replicate_codes)
+from pepr_tpu_torch.tree import decorate_supports
+from pepr_tpu_torch.tree.basic import Tree
+
+log = logging.getLogger("pepr_tpu_torch")
+
+
+def jackknife_mask(cat: ConcatenatedAlignment, rep_idx: int, seed: int,
+                   fraction: float = 0.5) -> np.ndarray:
+    """(L,) float32 site-weight mask for one replicate: a random
+    `fraction` of gene families sampled without replacement, seeded per
+    (seed, rep)."""
+    rng = np.random.default_rng([seed, rep_idx])
+    G = cat.n_genes
+    k = max(int(G * fraction), 1)
+    genes = rng.choice(G, size=k, replace=False)
+    return cat.gene_column_mask(genes).astype(np.float32)
+
+
+def jackknife_gene_masks(cat: ConcatenatedAlignment, reps: int, seed: int,
+                         fraction: float = 0.5) -> np.ndarray:
+    return np.stack([jackknife_mask(cat, r, seed, fraction)
+                     for r in range(reps)])
+
+
+def bootstrap_weights(length: int, rep_idx: int, seed: int) -> np.ndarray:
+    """(L,) float32 multinomial column-resampling weights (the classic
+    bootstrap as a reweighting)."""
+    rng = np.random.default_rng([seed, rep_idx, 7])
+    counts = rng.multinomial(length, np.full(length, 1.0 / length))
+    return counts.astype(np.float32)
+
+
+def support_trees(cat: ConcatenatedAlignment, reps: int, seed: int, *,
+                  model: WagModel | None = None, method: str = "fast_ml",
+                  fraction: float = 0.5, nni_rounds: int = 2,
+                  bl_steps: int = 60, device=None) -> list[Tree]:
+    """Build `reps` jackknife support trees by the batched replicate
+    fan-out (`ml` and `fast_ml`; the JAX package also takes this path
+    for every `reps` > 1).  Not ported yet: the `nj` method, bootstrap
+    resampling as an option, and the serial one-replicate path."""
+    if method not in ("ml", "fast_ml"):
+        raise ValueError(f"support method {method!r} is not ported yet "
+                         "(ml and fast_ml are)")
+    return support_trees_batched(cat, reps, seed, model=model,
+                                 fraction=fraction, nni_rounds=nni_rounds,
+                                 bl_steps=bl_steps, device=device)
+
+
+def support_trees_batched(cat: ConcatenatedAlignment, reps: int,
+                          seed: int, *, model: WagModel | None = None,
+                          fraction: float = 0.5, nni_rounds: int = 2,
+                          bl_steps: int = 60,
+                          device=None) -> list[Tree]:
+    """All replicates at once: per-replicate NJ starts, joint BL-opt,
+    then NNI rounds until no replicate improves (FastTree-style cap of
+    ~4 log2 N rounds; `nni_rounds` is a floor)."""
+    dev = resolve_device(device)
+    if model is None:
+        model = WagModel.create()
+    masks = jackknife_gene_masks(cat, reps, seed, fraction)
+    arrs = [tree_to_arrays(nj_start_tree(cat.mat, cat.taxa, masks[r],
+                                         device=dev), cat.taxa)
+            for r in range(reps)]
+    children = np.stack([a.children for a in arrs])  # (R, n_int, 3)
+    blens, lls = replicate_blopt(cat.mat, masks, children,
+                                 np.stack([a.blen for a in arrs]), model,
+                                 steps=bl_steps, device=dev)
+    log.info("support: batched BL-opt of %d replicates done", reps)
+
+    n_leaves = len(cat.taxa)
+    margs = model_tensors(model, dev)
+    codes = np.asarray(cat.mat, np.int8)
+    # each replicate's candidates share its (compacted) codes
+    rep_data = [replicate_codes(codes, masks[r:r + 1], dev)
+                for r in range(reps)]
+    max_rounds = max(nni_rounds, 4 * int(np.ceil(np.log2(max(n_leaves, 4)))))
+    for rnd in range(max_rounds):
+        new_children = children.copy()
+        moved: list[int] = []
+        for r in range(reps):
+            moves = _nni_moves(children[r], n_leaves)
+            cands = [_nni_candidate(children[r], blens[r], n_leaves, [m])
+                     for m in moves]
+            cd, w = rep_data[r]
+            scores = _score_topologies(
+                cd[0] if cd.dim() == 3 else cd, [c for c, _ in cands],
+                [b for _, b in cands], margs, w[0])
+            improving = np.nonzero(scores > lls[r] + 1e-4)[0]
+            if len(improving) == 0:
+                continue
+            taken, touched = [], set()
+            for idx in improving[np.argsort(-scores[improving])]:
+                k_c, k_p, kid, z = moves[int(idx)]
+                if {k_c, k_p} & touched:
+                    continue
+                touched |= {k_c, k_p}
+                taken.append(moves[int(idx)])
+            fixed, nb = _nni_candidate(children[r], blens[r], n_leaves,
+                                       taken)
+            blens[r] = nb
+            new_children[r] = fixed
+            moved.append(r)
+        children = new_children
+        if not moved:
+            log.info("support: NNI converged after round %d", rnd)
+            break
+        # re-optimize branch lengths of the moved replicates only
+        mb, ml = replicate_blopt(cat.mat, masks[moved], children[moved],
+                                 blens[moved], model,
+                                 steps=max(bl_steps // 2, 20), device=dev)
+        blens[moved] = mb
+        lls[moved] = ml
+        log.info("support: NNI round %d moved %d/%d replicates", rnd,
+                 len(moved), reps)
+        if rnd == max_rounds - 1:
+            log.warning("support: NNI round cap %d hit with %d "
+                        "replicates still moving", max_rounds, len(moved))
+
+    return [arrays_to_tree(TreeArrays(children[r], blens[r],
+                                      arrs[r].node_of_tree_node,
+                                      list(cat.taxa)))
+            for r in range(reps)]
+
+
+def decorated_tree(full_tree: Tree, reps_trees: list[Tree]) -> Tree:
+    """Support counts written onto the full tree
+    (TreeSupportDecorator.java:86-163)."""
+    return decorate_supports(full_tree, reps_trees)

@@ -1,0 +1,119 @@
+"""The port's import boundary and device rule: every module of
+pepr_tpu_torch, and chip_smoke.py as a module, import with jax and
+pepr_tpu made unimportable; entry points asked for the card on a
+machine without one raise instead of falling back to the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BOUNDARY = r"""
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["pepr_tpu"] = None
+sys.path.insert(0, ROOT)
+import pepr_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(pepr_tpu_torch.__path__,
+                                               "pepr_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke",
+                                              ROOT + "/chip_smoke.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+assert callable(mod.main)
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "pepr_tpu" or m.startswith("pepr_tpu.")]
+assert all(sys.modules[m] is None for m in bad), bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_pepr_tpu():
+    proc = subprocess.run(
+        [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + BOUNDARY],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_port_sources_never_name_jax_modules():
+    hits = []
+    for d, _, files in os.walk(os.path.join(ROOT, "pepr_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                src = open(os.path.join(d, f)).read()
+                for line in src.splitlines():
+                    s = line.strip()
+                    if s.startswith(("import jax", "from jax",
+                                     "import pepr_tpu ", "from pepr_tpu ",
+                                     "from pepr_tpu.", "import pepr_tpu.")):
+                        hits.append((f, s))
+    assert not hits
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _tiny():
+    from pepr_tpu_torch.models.msa import Alignment
+    from pepr_tpu_torch.tree import parse_newick
+    from pepr_tpu_torch.utils.simulate import simulate_alignment
+    rng = np.random.default_rng(0)
+    tree = parse_newick("((A:0.1,B:0.2):0.1,(C:0.1,D:0.2):0.1,E:0.3);")
+    codes, taxa = simulate_alignment(tree, 40, rng)
+    return Alignment("g", taxa, codes), tree
+
+
+def test_device_default_raises_without_card(no_cuda):
+    from pepr_tpu_torch.device import resolve_device
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["stage2", "ml_tree", "distances",
+                                   "loglik", "replicates", "support"])
+def test_entry_points_raise_not_fall_back(no_cuda, entry):
+    from pepr_tpu_torch.models import support, treebuild
+    from pepr_tpu_torch.models.concat import concatenate
+    from pepr_tpu_torch.ops import likelihood
+    from pepr_tpu_torch.parallel import replicates
+    from pepr_tpu_torch.pipeline import stage2
+    aln, tree = _tiny()
+    arr = likelihood.tree_to_arrays(tree, aln.taxa)
+    model = likelihood.WagModel.create()
+    calls = {
+        "stage2": lambda: stage2.run_stage2_aligned([aln]),
+        "ml_tree": lambda: treebuild.ml_tree(aln.mat, aln.taxa),
+        "distances": lambda: treebuild.protein_distances(aln.mat),
+        "loglik": lambda: likelihood.loglik(aln.mat, arr.children, arr.blen,
+                                            model),
+        "replicates": lambda: replicates.replicate_blopt(
+            aln.mat, np.ones((1, 40), np.float32), arr.children[None],
+            arr.blen[None], model),
+        "support": lambda: support.support_trees(concatenate([aln]), 2, 0),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_chip_smoke_refuses_without_card(no_cuda, capsys):
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(ROOT)
+    assert chip_smoke.main([]) == 2
+    out = capsys.readouterr().out
+    assert '"ok"' not in out

@@ -1,0 +1,113 @@
+"""The port's jackknife supports and replicate fan-out against the JAX
+package on the same inputs, on the CPU: concatenation and masks
+(identical), bootstrap weights (identical), replicate branch lengths
+(rel 1e-3) and LLs (rel 1e-5), decorated supports (identical) and the
+batched support trees (identical topologies)."""
+
+import numpy as np
+import pytest
+import torch
+
+from pepr_tpu.models import support as jsup
+from pepr_tpu.models.concat import concatenate as jconcat
+from pepr_tpu.models.msa import Alignment as JAlignment
+from pepr_tpu.models.treebuild import nj_start_tree as jnj
+from pepr_tpu.ops import likelihood as jlik
+from pepr_tpu.parallel.mesh import default_mesh, sharded_replicate_blopt
+from pepr_tpu.tree import parse_newick as jparse
+from pepr_tpu.tree import to_newick as jto_newick
+
+from pepr_tpu_torch.models import support as tsup
+from pepr_tpu_torch.models.concat import concatenate as tconcat
+from pepr_tpu_torch.models.msa import Alignment as TAlignment
+from pepr_tpu_torch.ops import likelihood as tlik
+from pepr_tpu_torch.parallel.replicates import compact_codes, replicate_blopt
+from pepr_tpu_torch.tree import parse_newick, rf_distance, to_newick
+from pepr_tpu_torch.utils.simulate import random_tree, simulate_families
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def families():
+    rng = np.random.default_rng(21)
+    taxa = [f"T{i}" for i in range(8)]
+    tree = random_tree(taxa, rng)
+    fams = simulate_families(tree, rng.integers(40, 90, size=10), rng,
+                             alpha=0.7)
+    j = jconcat([JAlignment(n, t, c) for n, t, c in fams])
+    t = tconcat([TAlignment(n, t, c) for n, t, c in fams])
+    return tree, j, t
+
+
+def _tmodel(jm):
+    return tlik.from_jax_arrays(jm.eig, jm.u, jm.u_inv, jm.pi, jm.rates)
+
+
+def test_concatenation_identical(families):
+    _, j, t = families
+    assert j.taxa == t.taxa and j.gene_names == t.gene_names
+    np.testing.assert_array_equal(j.mat, t.mat)
+    np.testing.assert_array_equal(j.spans, t.spans)
+    np.testing.assert_array_equal(j.presence, t.presence)
+    assert j.hs_matrix_text() == t.hs_matrix_text()
+
+
+def test_jackknife_masks_and_bootstrap_identical(families):
+    _, j, t = families
+    np.testing.assert_array_equal(jsup.jackknife_gene_masks(j, 6, 99),
+                                  tsup.jackknife_gene_masks(t, 6, 99))
+    np.testing.assert_array_equal(jsup.jackknife_mask(j, 3, 5, 0.3),
+                                  tsup.jackknife_mask(t, 3, 5, 0.3))
+    np.testing.assert_array_equal(jsup.bootstrap_weights(j.length, 2, 7),
+                                  tsup.bootstrap_weights(t.length, 2, 7))
+
+
+def test_compaction_keeps_live_columns(families):
+    _, _, t = families
+    masks = tsup.jackknife_gene_masks(t, 3, 1)
+    codes_sel, w_sel = compact_codes(t.mat, masks)
+    for r in range(3):
+        live = np.nonzero(masks[r])[0]
+        np.testing.assert_array_equal(codes_sel[r, :, :len(live)],
+                                      t.mat[:, live])
+        assert w_sel[r].sum() == masks[r].sum()
+    assert compact_codes(t.mat, np.ones((2, t.length), np.float32)) is None
+
+
+def test_replicate_blopt_matches_sharded(families):
+    _, j, t = families
+    masks = jsup.jackknife_gene_masks(j, 3, 4)
+    arrs = [jlik.tree_to_arrays(jnj(j.mat, j.taxa, masks[r]), j.taxa)
+            for r in range(3)]
+    ch = np.stack([a.children for a in arrs])
+    bl = np.stack([a.blen for a in arrs])
+    jm = jlik.WagModel.create(alpha=0.8)
+    want_b, want_ll = sharded_replicate_blopt(default_mesh(), j.mat, masks,
+                                              ch, bl, jm, steps=20)
+    got_b, got_ll = replicate_blopt(t.mat, masks, ch, bl, _tmodel(jm),
+                                    steps=20, device="cpu")
+    np.testing.assert_allclose(got_b, want_b, rtol=1e-3)
+    np.testing.assert_allclose(got_ll, want_ll, rtol=1e-5)
+
+
+def test_decorated_supports_identical(families):
+    tree, j, t = families
+    rng = np.random.default_rng(2)
+    full = to_newick(tree)
+    reps = [to_newick(random_tree(t.taxa, rng)) for _ in range(4)] + [full]
+    want = jsup.decorated_tree(jparse(full), [jparse(x) for x in reps])
+    got = tsup.decorated_tree(parse_newick(full),
+                              [parse_newick(x) for x in reps])
+    np.testing.assert_array_equal(got.support, want.support)
+    assert to_newick(got) == jto_newick(want)
+
+
+def test_support_trees_batched_match_jax(families):
+    _, j, t = families
+    jm = jlik.WagModel.create(alpha=0.8)
+    want = jsup.support_trees(j, 3, 11, model=jm, bl_steps=30)
+    got = tsup.support_trees(t, 3, 11, model=_tmodel(jm), bl_steps=30,
+                             device="cpu")
+    for a, b in zip(got, want):
+        assert rf_distance(a, parse_newick(jto_newick(b))) == 0
