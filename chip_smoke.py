@@ -1,12 +1,34 @@
-"""Drive the port's stage-2 path once on one NVIDIA H100 and check it.
+"""Drive the port's stage-1 and stage-2 paths once on one NVIDIA H100
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, each printing one JSON line with the elapsed seconds:
-  device   nvidia-smi name and power limit, capability (9.x required),
-           torch and nvcc versions
-  build    nvcc builds pepr_tpu_torch/csrc/pruning.cu for sm_90a into
-           the git-ignored pepr_tpu_torch/_build/
+  device   nvidia-smi name, power limit and max SM clock, capability (9.x
+           required), torch and nvcc versions
+  build    nvcc builds every pepr_tpu_torch/csrc/*.cu for sm_90a, one
+           process per source side by side, into the git-ignored
+           pepr_tpu_torch/_build/; ptxas registers and spills per kernel
+  data_stage1   seeded genomes at the shape of the Aquificales example:
+           11 ingroup genomes and 1 outgroup-pool genome of ~1,140
+           proteins (~1,300 WAG families, lengths lognormal around 306,
+           3 families of 2,100-2,600 residues, 100 random proteins each)
+  sw_kernel  the SW kernel against its plain PyTorch version on the card:
+           up to 256 real pairs of the stage-1 pair list from every
+           length bucket (BLOSUM62 11/1) and one bucket of planted ACGT
+           pairs under blastn 5/2; all five outputs must be equal (the
+           plain version's time on each bucket's pairs is printed); then
+           one launch at the main path's batch size for the bucket with
+           the most pairs, timed, held against the plain version on the
+           same batch
+  small_stage1  run_stage1 on a small input on the card and on the CPU:
+           identical groups and selected outgroups
+  stage1   run_stage1 (use_hmm=False, outgroup_count=2) at full size;
+           the SW launch count is reset just before and read just after;
+           the pool genome must be selected and at least half of the
+           families in >= 2 ingroup genomes recovered as clean groups
+  profile_stage1  torch.profiler's device time by kernel over a second
+           full stage-1 run, so the stage1 time carries no profiler
   data     the seeded 53-taxon dataset: 405 WAG+Gamma(0.5) families of
            100-250 columns, 64,433 concatenated columns, ~10% of the
            taxa absent from each family
@@ -45,6 +67,23 @@ T0 = time.time()
 # cores, and HBM bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# int32 lanes of one H100 SXM (132 SMs x 64); the int32 rate is this
+# times the SM clock that nvidia-smi reports as clocks.max.sm
+INT32_LANES = 132 * 64
+# int32 operations of one SW DP cell in the algorithm (not the kernel's
+# extra work): E 3 (two subtractions, a max), F 3, the diagonal add 1,
+# H 3 (max of four), the row best 1; trackers: E and F select + add 4,
+# the diagonal tracker's match test and adds 3, H's tracker selects 2
+SW_OPS_PER_CELL = 20
+
+# stage 1 at the shape of the Aquificales example (11 ingroup genomes,
+# a 1-genome outgroup pool; ~12,500 ingroup proteins)
+S1_INGROUP = 11
+S1_POOL = 1
+S1_FAMILIES = 1300
+S1_RANDOM = 100
+SW_CHECK_PAIRS = 256  # pairs per bucket held against the plain version
+RECOVERY_FLOOR = 0.5  # a broken path recovers far fewer families
 
 N_TAXA = 53
 N_FAMILIES = 405
@@ -69,12 +108,73 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def smi_line() -> str:
+def smi_line(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def sw_bound(real_cells: int, code_bytes: int, n_pairs: int,
+             sm_clock_mhz: float):
+    """Least time (ms) for SW on a batch: its int32 operations (the real
+    cells the pairs need) over the int32 rate, or its bytes (codes in,
+    the substitution table in, 20 bytes out per pair) over HBM
+    bandwidth; returns (ms, bound_by)."""
+    t_ops = real_cells * SW_OPS_PER_CELL / (INT32_LANES * sm_clock_mhz * 1e6)
+    t_bytes = (code_bytes + 25 * 25 * 4 + 20 * n_pairs) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def family_key(title: str) -> str:
+    """famNNNN for a family member; the whole title for a random
+    protein (each is a family of its own)."""
+    head = title.split("_")[0]
+    return head if head.startswith("fam") else title
+
+
+def family_recovery(hg_sets, ingroup) -> tuple[int, int]:
+    """(recovered, eligible): families present in >= 2 ingroup genomes,
+    and those of them for which one group holds >= 90% of their ingroup
+    members and no ingroup member of another family."""
+    members: dict[str, set] = {}
+    for g in ingroup:
+        for t in g.titles:
+            members.setdefault(family_key(t), set()).add(t)
+    eligible = {f: m for f, m in members.items()
+                if f.startswith("fam") and len(m) >= 2}
+    recovered = set()
+    for s in hg_sets:
+        own = [t for t in s.titles if family_key(t) in members
+               and t in members[family_key(t)]]
+        keys = {family_key(t) for t in own}
+        if len(keys) == 1:
+            f = keys.pop()
+            if f in eligible and len(own) >= 0.9 * len(eligible[f]):
+                recovered.add(f)
+    return len(recovered), len(eligible)
+
+
+def planted_nt_pairs(rng, n: int, lq: int, lt: int):
+    """(n, lq) and (n, lt) int8 ACGT codes: each query is a mutated,
+    gapped copy of a piece of its target, PAD-filled past random real
+    lengths."""
+    import numpy as np
+    q = np.full((n, lq), 24, np.int8)
+    t = np.full((n, lt), 24, np.int8)
+    for b in range(n):
+        nt_ = int(rng.integers(lt // 2, lt + 1))
+        t[b, :nt_] = rng.integers(0, 4, nt_)
+        nq = int(rng.integers(lq // 2, min(lq, nt_) + 1))
+        start = int(rng.integers(0, nt_ - nq + 1))
+        piece = t[b, start:start + nq].copy()
+        mut = rng.random(nq) < 0.1
+        piece[mut] = rng.integers(0, 4, int(mut.sum()))
+        keep = rng.random(nq) >= 0.03  # deletions
+        piece = piece[keep]
+        q[b, :len(piece)] = piece
+    return q, t
 
 
 def time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -249,6 +349,173 @@ class _Messages(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
+    """The stage-1 path: data_stage1, sw_kernel, small_stage1 and stage1;
+    returns the SW kernel's entry of the kernels line."""
+    import numpy as np
+    import torch
+
+    from pepr_tpu_torch.data.nt_scores import (NT_GAP_EXTEND, NT_GAP_OPEN,
+                                               nt_kernel_matrix)
+    from pepr_tpu_torch.models.homology import (ProteinUniverse, batch_pairs,
+                                                candidate_union, pack_codes,
+                                                sw_buckets)
+    from pepr_tpu_torch.ops import sw
+    from pepr_tpu_torch.ops.smith_waterman import (kernel_matrix,
+                                                   sw_align_batch)
+    from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
+    from pepr_tpu_torch.utils.simulate import simulate_genomes
+
+    # -- data_stage1
+    t = time.time()
+    ingroup, pool, _ = simulate_genomes(
+        np.random.default_rng(seed + 10), n_ingroup=S1_INGROUP,
+        n_pool=S1_POOL, n_families=S1_FAMILIES, n_random=S1_RANDOM)
+    lens = np.concatenate([g.lengths() for g in ingroup])
+    phase("data_stage1", seconds=round(time.time() - t, 3),
+          ingroup_genomes=len(ingroup), pool_genomes=len(pool),
+          proteins=[len(g) for g in ingroup + pool],
+          ingroup_proteins=int(len(lens)), ingroup_residues=int(lens.sum()),
+          length_p50_p90_p99=[float(x) for x in
+                              np.percentile(lens, [50, 90, 99])],
+          length_max=int(lens.max()))
+
+    # -- sw_kernel: the stage-1 pair list, bucket by bucket
+    t = time.time()
+    universe = ProteinUniverse.build(ingroup)
+    pairs_q, pairs_t = candidate_union(universe, device=dev)
+    eff_q, eff_t, buckets = sw_buckets(universe.lengths, pairs_q, pairs_t)
+    codes = pack_codes(universe.seqs, device=dev)
+    sub = sw.integer_sub(kernel_matrix(), dev)
+    ulens = universe.lengths.astype(np.int64)
+    # the DP cells of the whole pair list: real, padded to the buckets,
+    # and the padded share of the buckets with 4,096-long targets
+    pad_cells = {k: len(i) * k[0] * k[1] for k, i in buckets.items()}
+    list_cells = dict(
+        real=int((ulens[eff_q] * ulens[eff_t]).sum()),
+        padded=int(sum(pad_cells.values())),
+        padded_share_t4096=sum(v for k, v in pad_cells.items()
+                               if k[1] == 4096) / sum(pad_cells.values()))
+
+    def gather(idx, blq, blt):
+        qi = torch.as_tensor(eff_q[idx], device=dev)
+        ti = torch.as_tensor(eff_t[idx], device=dev)
+        return codes[qi, :blq].contiguous(), codes[ti, :blt].contiguous()
+
+    def compare(got, want, what):
+        err = max(float((got[k].double() - want[k].double()).abs().max())
+                  for k in want)
+        if err != 0:
+            fail(f"SW kernel disagrees with its plain version at {what}: "
+                 f"max abs err {err}")
+        return err
+
+    checked = []
+    for (blq, blt), idx in buckets.items():
+        take = idx[np.linspace(0, len(idx) - 1,
+                               min(len(idx), SW_CHECK_PAIRS)).astype(int)]
+        q, tt = gather(take, blq, blt)
+        got = sw.sw_align(q, tt, sub)
+        want, plain_ms = timed(lambda: sw_align_batch(q, tt, sub))
+        compare(got, want, f"bucket ({blq}, {blt})")
+        checked.append([blq, blt, len(idx), len(take), plain_ms])
+    # blastn 5/2 on planted ACGT pairs, at the dominant bucket's shape
+    (blq, blt), idx = max(buckets.items(), key=lambda kv: len(kv[1]))
+    qn, tn = planted_nt_pairs(np.random.default_rng(seed + 11),
+                              SW_CHECK_PAIRS, blq, blt)
+    qn, tn = torch.as_tensor(qn, device=dev), torch.as_tensor(tn, device=dev)
+    nsub = sw.integer_sub(nt_kernel_matrix(), dev)
+    compare(sw.sw_align(qn, tn, nsub, NT_GAP_OPEN, NT_GAP_EXTEND),
+            sw_align_batch(qn, tn, nsub, NT_GAP_OPEN, NT_GAP_EXTEND),
+            f"the 5/2 set ({blq}, {blt})")
+    nt_best = float(sw_align_batch(qn, tn, nsub, NT_GAP_OPEN,
+                                   NT_GAP_EXTEND)["score"].max())
+    # one launch at the main path's batch size for the dominant bucket,
+    # and the plain version on the same batch
+    n_main = min(len(idx), batch_pairs(blq, blt, dev))
+    sel = idx[:n_main]
+    q, tt = gather(sel, blq, blt)
+    ms = time_ms(lambda: sw.sw_align(q, tt, sub), reps=5)
+    got = sw.sw_align(q, tt, sub)
+    want, plain_ms = timed(lambda: sw_align_batch(q, tt, sub))
+    err = compare(got, want, f"the main batch ({blq}, {blt}) x {n_main}")
+    real = int((ulens[eff_q[sel]] * ulens[eff_t[sel]]).sum())
+    padded = n_main * blq * blt
+    bound_ms, bound_by = sw_bound(real, n_main * (blq + blt), n_main,
+                                  sm_clock_mhz)
+    entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 shape=[n_main, blq, blt], real_cells=real,
+                 padded_cells=padded, gcups_real=real / ms / 1e6,
+                 gcups_padded=padded / ms / 1e6)
+    del q, tt, got, want, qn, tn, codes
+    torch.cuda.empty_cache()
+    phase("sw_kernel", seconds=round(time.time() - t, 3),
+          union_pairs=int(len(pairs_q)), pair_list_cells=list_cells,
+          buckets_checked=dict(
+              columns=["blq", "blt", "pairs", "checked", "plain_ms"],
+              rows=checked),
+          nt_check=dict(shape=[SW_CHECK_PAIRS, blq, blt],
+                        best_score=nt_best), **entry)
+
+    # -- small_stage1: the card against the CPU's plain path
+    t = time.time()
+    s_in, s_pool, _ = simulate_genomes(
+        np.random.default_rng(seed + 12), n_ingroup=4, n_families=60,
+        n_random=10, median_len=120.0, max_len=250, n_long=0)
+    cfg = Stage1Config(use_hmm=False, outgroup_count=2)
+    on_gpu = run_stage1(s_in, s_pool, cfg, device="cuda")
+    on_cpu = run_stage1(s_in, s_pool, cfg, device="cpu")
+    same = [x.titles for x in on_gpu.hg_sets] == \
+        [x.titles for x in on_cpu.hg_sets]
+    phase("small_stage1", seconds=round(time.time() - t, 3),
+          proteins=[len(g) for g in s_in + s_pool],
+          groups_gpu=len(on_gpu.hg_sets), groups_cpu=len(on_cpu.hg_sets),
+          counts_gpu=on_gpu.counts, counts_cpu=on_cpu.counts,
+          identical_groups=same, outgroups_gpu=on_gpu.selected_outgroups,
+          outgroups_cpu=on_cpu.selected_outgroups)
+    if not same or on_gpu.selected_outgroups != on_cpu.selected_outgroups:
+        fail("small stage-1 run on the card disagrees with the CPU's")
+
+    # -- stage1 at full size
+    cfg = Stage1Config(use_hmm=False, outgroup_count=2)
+    torch.cuda.synchronize()
+    sw.reset_launch_counts()
+    t = time.time()
+    res = run_stage1(ingroup, pool, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = sw.LAUNCHES["sw"]
+    sizes = np.array([len(x) for x in res.hg_sets])
+    rec, elig = family_recovery(res.hg_sets, ingroup)
+    phase("stage1", seconds=round(wall, 3),
+          timings={k: round(v, 3) for k, v in res.timings.items()},
+          counts=res.counts,
+          group_size_min_p50_p90_max=[int(sizes.min()), float(
+              np.percentile(sizes, 50)), float(np.percentile(sizes, 90)),
+              int(sizes.max())] if len(sizes) else [],
+          selected_outgroups=res.selected_outgroups, sw_launches=launches,
+          families_recovered=rec, families_eligible=elig,
+          recovered_share=rec / max(elig, 1))
+    if launches <= 0:
+        fail("the SW kernel was not launched on the stage-1 path")
+    if pool[0].taxon not in res.selected_outgroups:
+        fail(f"the pool genome was not selected: {res.selected_outgroups}")
+    if rec < RECOVERY_FLOOR * elig:
+        fail(f"only {rec} of {elig} families recovered")
+    entry["launches"] = launches
+
+    # -- profile_stage1: device time by kernel over a second full run
+    from torch.profiler import ProfilerActivity, profile
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_stage1(ingroup, pool, cfg, device="cuda")
+        torch.cuda.synchronize()
+    phase("profile_stage1", **device_time(prof, time.time() - t))
+    return entry
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -267,7 +534,7 @@ def main(argv=None) -> int:
     from pepr_tpu_torch.models.support import jackknife_gene_masks
     from pepr_tpu_torch.models.treebuild import (SCORE_BATCH, _postorder_fix,
                                                  _remap_blen, _spr_candidates)
-    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.ops import _cuda, pruning, sw
     from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
                                                transition_matrices,
                                                tree_to_arrays)
@@ -280,25 +547,30 @@ def main(argv=None) -> int:
 
     # -- device
     smi = smi_line()
+    sm_clock = float(smi_line("clocks.max.sm").split()[0])
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
-    nvcc_ver = subprocess.run([pruning.find_nvcc(), "--version"],
+    nvcc_ver = subprocess.run([_cuda.find_nvcc(), "--version"],
                               capture_output=True, text=True, timeout=60,
                               check=True).stdout.strip().splitlines()[-1]
-    phase("device", nvidia_smi=smi, name=name, capability=list(cap),
-          count=torch.cuda.device_count(), torch=torch.__version__,
-          cuda=torch.version.cuda, nvcc=nvcc_ver)
+    phase("device", nvidia_smi=smi, max_sm_clock_mhz=sm_clock, name=name,
+          capability=list(cap), count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda, nvcc=nvcc_ver)
     if cap[0] != 9:
         fail(f"needs a Hopper card (capability 9.x), got {cap}")
     dev = resolve_device("cuda")
 
-    # -- build
+    # -- build: every source, one nvcc each, side by side
     t = time.time()
-    log = pruning.build(force=True)
+    logs = _cuda.build(force=True)
     pruning.library()
-    phase("build", seconds=round(time.time() - t, 3),
-          ptxas=[ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln])
+    sw.library()
+    phase("build", seconds=round(time.time() - t, 3), ptxas={
+        n: [ln.strip() for ln in lg.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln]
+        for n, lg in logs.items()})
+
+    sw_entry = stage1_phases(args.seed, dev, sm_clock)
 
     # -- data
     rng = np.random.default_rng(args.seed)
@@ -481,14 +753,19 @@ def main(argv=None) -> int:
             ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
             bound_by=at["bound_by"], shape="full_tree")
 
-    print(json.dumps({"kernels": [
+    kernels = [
         dict(name=k, route="cuda", source="pepr_tpu_torch/csrc/pruning.cu",
              replaces=rep, launches=launches[k], **entry(k),
              library_ms=None)
         for k, rep in (
             ("pruning_fwd", "pepr_tpu/ops/pallas_pruning.py:113"),
-            ("pruning_bwd", "pepr_tpu/ops/pallas_pruning_grad.py:118"))]}),
-        flush=True)
+            ("pruning_bwd", "pepr_tpu/ops/pallas_pruning_grad.py:118"))]
+    # no PyTorch call computes Smith-Waterman: no library time
+    kernels.append(dict(name="sw", route="cuda",
+                        source="pepr_tpu_torch/csrc/sw.cu",
+                        replaces="pepr_tpu/ops/pallas_sw.py:64",
+                        **sw_entry, library_ms=None))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

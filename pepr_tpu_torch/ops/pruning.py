@@ -3,11 +3,10 @@ their plain PyTorch versions.
 
 The CUDA source is `csrc/pruning.cu` (replacing the Pallas kernels
 `pepr_tpu/ops/pallas_pruning.py::_kernel` and
-`pepr_tpu/ops/pallas_pruning_grad.py::_bwd_kernel`).  It is compiled at
-first use by `nvcc` for `sm_90a` into `_build/libpepr_pruning.so`, a
-library with a plain C interface loaded with `ctypes` (no PyTorch
-headers, so the build takes seconds).  The build is redone when the
-source's hash differs from the one stored beside the library.
+`pepr_tpu/ops/pallas_pruning_grad.py::_bwd_kernel`).  `ops/_cuda.py`
+compiles it at first use with `nvcc` for `sm_90a` into
+`_build/libpepr_pruning.so`, a library with a plain C interface loaded
+with `ctypes`.
 
 Layouts, over a batch of B trees scored against one alignment:
   codes     (n_leaves, L) int8 shared by the batch, or (B, n_leaves, L)
@@ -27,22 +26,16 @@ internal node and at the root) with plain PyTorch operations.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 
 import torch
+
+from pepr_tpu_torch.ops import _cuda
 
 N_AA = 20
 RESCALE_EVERY = 2
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "pruning.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libpepr_pruning.so")
-HASH_PATH = LIB_PATH + ".sha256"
+SOURCE = _cuda.source_path("pruning")
 
 # Gamma categories a block holds (MAXC in the source) and sites per
 # tile (S_TILE).
@@ -65,55 +58,7 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-# -- build and binding -------------------------------------------------------
-
-def find_nvcc() -> str:
-    """nvcc from CUDA_HOME, then /usr/local/cuda/bin, then PATH."""
-    cands = []
-    if os.environ.get("CUDA_HOME"):
-        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
-    cands.append("/usr/local/cuda/bin/nvcc")
-    for c in cands:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (CUDA_HOME, /usr/local/cuda/bin, "
-                           "PATH); the pruning kernels cannot be built")
-    return found
-
-
-def nvcc_command(nvcc: str, out_path: str) -> list[str]:
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", out_path, SOURCE]
-
-
-def _source_hash() -> str:
-    with open(SOURCE, "rb") as fh:
-        return hashlib.sha256(fh.read()).hexdigest()
-
-
-def build(force: bool = False) -> str:
-    """Compile the library unless an up-to-date one exists; returns the
-    compiler's output ('' when nothing was built)."""
-    digest = _source_hash()
-    if not force and os.path.exists(LIB_PATH) and os.path.exists(HASH_PATH):
-        with open(HASH_PATH) as fh:
-            if fh.read().strip() == digest:
-                return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(find_nvcc(), tmp),
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed to build the pruning kernels:\n"
-                           + proc.stdout + proc.stderr)
-    os.replace(tmp, LIB_PATH)
-    with open(HASH_PATH, "w") as fh:
-        fh.write(digest + "\n")
-    return proc.stdout + proc.stderr
-
+# -- binding -----------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -145,12 +90,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _lib
     if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIB_PATH)
-        for name, args in ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = RESTYPES[name]
+        lib = _cuda.load("pruning", ARGTYPES, RESTYPES)
         if (lib.pruning_site_tile(), lib.pruning_max_cats()) \
                 != (S_TILE, MAX_CATS):
             raise RuntimeError("pruning library was built with another "

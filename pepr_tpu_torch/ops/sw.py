@@ -1,0 +1,131 @@
+"""The Smith-Waterman kernel's binding and wrapper.
+
+The CUDA source is `csrc/sw.cu` (replacing the Pallas kernel
+`pepr_tpu/ops/pallas_sw.py::_kernel`), built by `ops/_cuda.py` into
+`_build/libpepr_sw.so` and loaded with `ctypes`.  `sw_align` launches it
+on CUDA tensors and raises on anything else; its plain PyTorch version
+is `ops/smith_waterman.sw_align_batch`, and `sw_align_batch_fast` there
+picks between the two by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pepr_tpu_torch.alphabet import N_CODES
+from pepr_tpu_torch.ops import _cuda
+
+MAX_LEN = 4096
+# Scores, penalties and substitution values stay far inside int32: the
+# DP's "minus infinity" is -2**28.
+MAX_ABS = 1 << 20
+
+SOURCE = _cuda.source_path("sw")
+
+# Launch count, bumped where the wrapper launches the kernel.
+LAUNCHES = {"sw": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Argument lists of the C functions (checked against the source by the
+# tests).
+ARGTYPES = {
+    "sw_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "sw_max_len": [],
+    "sw_error_string": [_I],
+}
+RESTYPES = {"sw_launch": _I, "sw_max_len": _I,
+            "sw_error_string": ctypes.c_char_p}
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        lib = _cuda.load("sw", ARGTYPES, RESTYPES)
+        if lib.sw_max_len() != MAX_LEN:
+            raise RuntimeError("sw library was built with another MAX_LEN "
+                               "than ops/sw.py expects")
+        _lib = lib
+    return _lib
+
+
+def integer_sub(sub, device=None) -> torch.Tensor:
+    """A (25, 25) substitution matrix as contiguous int32 on `device`
+    (default: where `sub` is); raises unless every value is an integer
+    of magnitude <= 2**20."""
+    s = torch.as_tensor(sub, device=device)
+    if s.shape != (N_CODES, N_CODES):
+        raise ValueError(f"sub must be ({N_CODES}, {N_CODES}), got "
+                         f"{tuple(s.shape)}")
+    if s.dtype == torch.int32:
+        si = s
+    else:
+        si = s.to(torch.int32)
+        if not bool((si.to(s.dtype) == s).all()):
+            raise ValueError("sub must hold integer values (the DP runs in "
+                             "int32)")
+    if int(si.abs().max()) > MAX_ABS:
+        raise ValueError(f"sub values must lie within +-{MAX_ABS}")
+    return si.contiguous()
+
+
+def check_gaps(gap_open: int, gap_extend: int) -> tuple[int, int]:
+    go, ge = int(gap_open), int(gap_extend)
+    if go != gap_open or ge != gap_extend or not 0 <= go <= MAX_ABS \
+            or not 0 <= ge <= MAX_ABS:
+        raise ValueError(f"gap penalties must be integers in [0, {MAX_ABS}], "
+                         f"got {gap_open}, {gap_extend}")
+    return go, ge
+
+
+def sw_align(q: torch.Tensor, t: torch.Tensor, sub: torch.Tensor,
+             gap_open: int = 11, gap_extend: int = 1) -> dict:
+    """The kernel: q (B, Lq) and t (B, Lt) int8 codes, sub (25, 25)
+    int32 (`integer_sub`), all on one CUDA device.  Returns the dict of
+    (B,) tensors of `sw_align_batch`."""
+    dev = q.device
+    for name, x in (("q", q), ("t", t), ("sub", sub)):
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name} must be on {dev} (a CUDA device), got "
+                             f"{x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype != torch.int8 or t.dtype != torch.int8:
+        raise ValueError("q and t must be int8 codes")
+    if sub.dtype != torch.int32 or sub.shape != (N_CODES, N_CODES):
+        raise ValueError("sub must be int32 (25, 25); see integer_sub")
+    if q.dim() != 2 or t.dim() != 2 or q.shape[0] != t.shape[0]:
+        raise ValueError(f"q and t must be (B, Lq) and (B, Lt), got "
+                         f"{tuple(q.shape)} and {tuple(t.shape)}")
+    B, Lq = q.shape
+    Lt = t.shape[1]
+    if B < 1 or not 1 <= Lq <= MAX_LEN or not 1 <= Lt <= MAX_LEN \
+            or B >= 1 << 31:
+        raise ValueError(f"empty or oversized batch (B={B}, Lq={Lq}, "
+                         f"Lt={Lt}; lengths <= {MAX_LEN})")
+    go, ge = check_gaps(gap_open, gap_extend)
+    lib = library()
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    ints = torch.empty((4, B), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES["sw"] += 1
+    rc = lib.sw_launch(q.data_ptr(), t.data_ptr(), sub.data_ptr(), B, Lq, Lt,
+                       go, ge, score.data_ptr(), ints[0].data_ptr(),
+                       ints[1].data_ptr(), ints[2].data_ptr(),
+                       ints[3].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sw launch failed: CUDA error {rc} "
+                           f"({lib.sw_error_string(rc).decode()})")
+    return {"score": score, "matches": ints[0], "length": ints[1],
+            "q_end": ints[2], "t_end": ints[3]}

@@ -83,14 +83,20 @@ def test_device_default_raises_without_card(no_cuda):
 
 
 @pytest.mark.parametrize("entry", ["stage2", "ml_tree", "distances",
-                                   "loglik", "replicates", "support"])
+                                   "loglik", "replicates", "support",
+                                   "stage1", "homology_search",
+                                   "candidate_pairs", "sw_pairs", "mcl"])
 def test_entry_points_raise_not_fall_back(no_cuda, entry):
-    from pepr_tpu_torch.models import support, treebuild
+    from pepr_tpu_torch.io.fasta import SequenceSet
+    from pepr_tpu_torch.models import homology, support, treebuild
     from pepr_tpu_torch.models.concat import concatenate
-    from pepr_tpu_torch.ops import likelihood
+    from pepr_tpu_torch.ops import kmer_filter, likelihood, mcl
     from pepr_tpu_torch.parallel import replicates
-    from pepr_tpu_torch.pipeline import stage2
+    from pepr_tpu_torch.pipeline import stage1, stage2
     aln, tree = _tiny()
+    genome = SequenceSet("g", [f"p{i} [G s]" for i in range(len(aln.mat))],
+                         list(aln.mat))
+    prof = kmer_filter.kmer_profiles(genome.seqs)
     arr = likelihood.tree_to_arrays(tree, aln.taxa)
     model = likelihood.WagModel.create()
     calls = {
@@ -103,6 +109,15 @@ def test_entry_points_raise_not_fall_back(no_cuda, entry):
             aln.mat, np.ones((1, 40), np.float32), arr.children[None],
             arr.blen[None], model),
         "support": lambda: support.support_trees(concatenate([aln]), 2, 0),
+        "stage1": lambda: stage1.run_stage1(
+            [genome], [], stage1.Stage1Config(use_hmm=False)),
+        "homology_search": lambda: homology.search_all_vs_all([genome]),
+        "candidate_pairs": lambda: kmer_filter.candidate_pairs(
+            prof, prof, np.array([0, len(prof)])),
+        "sw_pairs": lambda: homology._bucketed_sw(
+            genome.seqs, np.array([0]), np.array([1])),
+        "mcl": lambda: mcl.mcl_cluster(3, np.array([0]), np.array([1]),
+                                       np.array([1.0])),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pepr_tpu_torch.ops import _cuda
 from pepr_tpu_torch.ops import likelihood as tlik
 from pepr_tpu_torch.ops import pruning
 from pepr_tpu_torch.tree import parse_newick
@@ -22,10 +23,10 @@ C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "long long": ctypes.c_longlong, "int": ctypes.c_int}
 
 
-def _c_signatures():
+def _c_signatures(source=pruning.SOURCE):
     """name -> (return type, [parameter types]) of every function in the
     source's extern "C" block."""
-    src = open(pruning.SOURCE).read()
+    src = open(source).read()
     block = src[src.index('extern "C" {'):]
     out = {}
     for m in re.finditer(r"^([\w ]+?\*?)\s*(\w+)\(([^)]*)\)\s*\{", block,
@@ -53,13 +54,14 @@ def test_source_launchers_match_declared_argtypes():
 
 
 def test_build_command_targets_sm90a_without_torch_headers():
-    cmd = pruning.nvcc_command("nvcc", "/x/lib.so")
+    cmd = _cuda.nvcc_command("nvcc", pruning.SOURCE, "/x/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and cmd[-1] == pruning.SOURCE
     src = open(pruning.SOURCE).read()
     assert "torch/extension.h" not in src
     assert "atomicAdd" not in src  # the gradient is reduced in order
-    assert pruning.LIB_PATH.startswith(pruning.BUILD_DIR)
+    assert _cuda.lib_path("pruning").startswith(_cuda.BUILD_DIR)
+    assert "pruning" in _cuda.SOURCES
     for macro, value in (("S_TILE", pruning.S_TILE),
                          ("MAXC", pruning.MAX_CATS)):
         assert re.search(rf"#define {macro} {value}\b", src), macro
