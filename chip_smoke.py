@@ -37,13 +37,23 @@ Phases, each printing one JSON line with the elapsed seconds:
            trees x 8,192 sites) and at the shapes the main path gives
            the kernels: the full tree (1 x 64,433 sites), a block of
            jackknife replicates on their compacted per-replicate codes,
-           and a batch of SPR candidates scored against the full width
+           and a batch of SPR candidates scored against the full width;
+           and a tree of 8,191 nodes (the kernels' limit) on 256 random
+           columns;
+           at each shape the nodes in the spill tiers as planned, and the
+           spill-record writes and reads the kernel made in one tile of
+           each tree (per tree, each must equal the plan's spilled
+           nodes), shared memory, resident blocks per SM and registers;
+           two gradient launches on the same inputs must be
+           bit-identical
   small    run_stage2_aligned on a small input on the card and on the
            CPU (plain path): same topology and supports
   stage2   run_stage2_aligned at full width and the pipeline's default
            depth (`ml` full tree, SUPPORT_REPS jackknife replicates);
-           launch counts are reset just before and read just after,
-           and the run must have made an SPR sweep
+           launch counts and the wrapper's planning tally (plans made,
+           host seconds copying `children` and planning) are reset just
+           before and read just after, and the run must have made an SPR
+           sweep
   profile  torch.profiler's device time by kernel over a second,
            shallower stage-2 run (fast_ml, PROFILE_REPS replicates), so
            the stage2 time above carries no profiler overhead
@@ -92,6 +102,8 @@ KERNEL_SITES = 8192
 KERNEL_TREES = 4
 SUPPORT_REPS = 100  # the pipeline's default
 PROFILE_REPS = 8
+MAX_TREE_TAXA = 4096  # a rooted tree of 8,191 nodes: the kernels' limit
+MAX_TREE_SITES = 256
 PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
 # version (one every SCORE_BATCH / PLAIN_SPR_TREES)
 FWD_RTOL = 1e-5  # per-site LL, elementwise (plus 1e-5 absolute)
@@ -248,12 +260,45 @@ def timed(fn):
     return out, a.elapsed_time(b)
 
 
+def launch_facts(kernel: str) -> dict:
+    """The plan and grid of a wrapper's last launch: nodes in the spill
+    tiers (planned, and the spill-record writes and reads the kernel
+    counted in one tile of each tree: each spilled node's partial and
+    upper message is written once and read once, so per tree they must
+    equal the plan's spilled nodes), shared memory, resident blocks per
+    SM and registers."""
+    import torch
+    from pepr_tpu_torch.ops import pruning
+    last = pruning.LAST[kernel]
+    plan = last["plan"]
+    want_f = (plan[:, :-1, 3] < 0).sum(dim=1)
+    want_u = (plan[:, :-1, 7] < 0).sum(dim=1)
+    got = last["kernel_spills"].long()
+    want = torch.stack([want_f, want_f, want_u, want_u], dim=1)
+    counted = got.sum(dim=0).tolist()
+    if not torch.equal(got, want):
+        bad = int((got != want).any(dim=1).nonzero()[0])
+        fail(f"{kernel}: tree {bad}: the kernel counted spill-tier writes "
+             f"and reads {got[bad].tolist()}, the plan spills "
+             f"{want[bad].tolist()}")
+    kind = 0 if kernel == "pruning_fwd" else 1
+    return dict(
+        registers=pruning.library().pruning_num_regs(kind),
+        smem_bytes=last["smem_bytes"], blocks_per_sm=last["blocks_per_sm"],
+        blocks_per_tree=last["n_chunks"],
+        slots=dict(forward=last["slots_f"], upper=last["slots_u"]),
+        spill_tier=dict(forward_nodes=last["spilled_f"],
+                        upper_nodes=last["spilled_u"],
+                        kernel_writes_reads=counted))
+
+
 def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
                   reps=5):
     """Both wrappers (the gradient only if `grad`) against their plain
     versions on the same card tensors, tree by tree for the plain side
     (`plain_trees`: the trees held against it, default all); returns
-    {kernel: numbers} and fails the run beyond tolerance."""
+    {kernel: numbers} and fails the run beyond tolerance, on spill counts
+    that disagree, or on two gradient launches that differ in any bit."""
     import torch
     from pepr_tpu_torch.ops import pruning
 
@@ -279,10 +324,11 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
                 del g_r
             return d_max, r_max
 
-    bounds = kernel_bounds(B, N_TAXA, n_int, L, pm.shape[1],
+    bounds = kernel_bounds(B, codes.shape[-2], n_int, L, pm.shape[1],
                            ch[0].cpu().numpy(), codes.numel())
     ll_k = pruning.pruning_fwd(codes, ch, pm, pi)
     torch.cuda.synchronize()
+    facts = launch_facts("pruning_fwd")
     with torch.no_grad():
         ll_r, plain_ms = timed(plain_fwd)
     d = (ll_k[trees] - ll_r).abs()
@@ -290,7 +336,7 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
         max_abs_err=float(d.max()),
         max_rel_err=float((d / (ll_r.abs() + 1.0)).max()), tol=FWD_RTOL,
         ms=time_ms(lambda: pruning.pruning_fwd(codes, ch, pm, pi), reps),
-        plain_ms=plain_ms, plain_trees=len(trees))}
+        plain_ms=plain_ms, plain_trees=len(trees), **facts)}
     ok = bool(torch.isfinite(ll_k).all()) and bool(
         (d <= FWD_RTOL * ll_r.abs() + 1e-5).all())
     del ll_k, ll_r, d
@@ -300,17 +346,23 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
     if grad:
         g_k = pruning.pruning_bwd(codes, ch, pm, pi, ct)
         torch.cuda.synchronize()
+        facts = launch_facts("pruning_bwd")
+        same = bool(torch.equal(g_k, pruning.pruning_bwd(codes, ch, pm, pi,
+                                                         ct)))
         (d_max, r_max), plain_ms = timed(lambda: plain_bwd(g_k))
         out["pruning_bwd"] = dict(
             max_abs_err=d_max, max_rel_err=d_max / r_max, tol=BWD_RTOL,
             ms=time_ms(lambda: pruning.pruning_bwd(codes, ch, pm, pi, ct),
                        reps),
-            plain_ms=plain_ms, plain_trees=len(trees))
+            plain_ms=plain_ms, plain_trees=len(trees),
+            bit_identical_relaunch=same, **facts)
         ok = bool(torch.isfinite(g_k).all()) and d_max / r_max <= BWD_RTOL
         del g_k
         if not ok:
             fail(f"pruning_bwd disagrees with its plain version: "
                  f"{out['pruning_bwd']}")
+        if not same:
+            fail("two pruning_bwd launches on the same inputs differ")
     for k, v in out.items():
         v["bound_ms"], v["bound_by"] = bounds[k]
     torch.cuda.empty_cache()
@@ -589,8 +641,8 @@ def main(argv=None) -> int:
     model = WagModel.create(alpha=0.5)
     pi = torch.as_tensor(model.pi, device=dev)
 
-    def tree_batch(trs):
-        arrs = [tree_to_arrays(tr, taxa) for tr in trs]
+    def tree_batch(trs, names=taxa):
+        arrs = [tree_to_arrays(tr, names) for tr in trs]
         ch = torch.as_tensor(np.stack([a.children for a in arrs]),
                              device=dev)
         blen = torch.as_tensor(np.stack([a.blen for a in arrs]), device=dev)
@@ -650,6 +702,19 @@ def main(argv=None) -> int:
                         plain_trees=range(0, n_spr,
                                           max(1, n_spr // PLAIN_SPR_TREES)),
                         reps=3))
+    # the largest tree the kernels take (8,191 nodes), through the spill
+    # tiers, on random codes
+    big_taxa = [f"big{i:04d}" for i in range(MAX_TREE_TAXA)]
+    ch, pm = tree_batch([random_tree(big_taxa, rng)], big_taxa)
+    big = rng.integers(0, 20, size=(MAX_TREE_TAXA, MAX_TREE_SITES))
+    big[rng.random(big.shape) < 0.1] = 23
+    shapes["max_tree"] = dict(
+        trees=1, sites=MAX_TREE_SITES, codes="shared",
+        taxa=MAX_TREE_TAXA, nodes=MAX_TREE_TAXA + ch.shape[1],
+        **check_kernels(torch.as_tensor(big.astype(np.int8), device=dev), ch,
+                        pm, pi, torch.as_tensor(
+                            rng.random((1, MAX_TREE_SITES)).astype(
+                                np.float32), device=dev), reps=2))
     del ch, pm, ct, codes_full, codes_s
     torch.cuda.empty_cache()
     phase("kernels", cats=len(model.rates), shapes=shapes)
@@ -690,6 +755,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = dict(pruning.LAUNCHES)
+    planning = dict(pruning.PLANNING)
     port_log.removeHandler(msgs)
     search = [m for m in msgs.lines if m.startswith(("ml_tree", "support"))]
     spr_sweeps = [m for m in search if m.startswith("ml_tree: SPR sweep")]
@@ -714,7 +780,8 @@ def main(argv=None) -> int:
           final_ll_rel=ll_rel, rf_vs_generating_tree=rf,
           n_internal_edges=len(bipartitions(res.full_tree,
                                             taxon_index(taxa))),
-          supports=sup, launches=launches, search=search)
+          supports=sup, launches=launches, planning=planning,
+          search=search)
     if not np.isfinite(res.log_likelihood) or not ll_rel <= 1e-5:
         fail("final log-likelihood is not finite or disagrees with the "
              "plain path")

@@ -20,7 +20,8 @@ import numpy as np
 from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.models.concat import ConcatenatedAlignment
 from pepr_tpu_torch.models.treebuild import (_nni_candidate, _nni_moves,
-                                             _score_topologies, nj_start_tree)
+                                             _score_topologies, ml_tree,
+                                             nj_start_tree)
 from pepr_tpu_torch.ops.likelihood import (TreeArrays, WagModel,
                                            arrays_to_tree, model_tensors,
                                            tree_to_arrays)
@@ -58,17 +59,39 @@ def bootstrap_weights(length: int, rep_idx: int, seed: int) -> np.ndarray:
     return counts.astype(np.float32)
 
 
+def support_tree_single(cat: ConcatenatedAlignment, rep_idx: int,
+                        seed: int, *, model: WagModel | None = None,
+                        fraction: float = 0.5, nni_rounds: int = 2,
+                        bl_steps: int = 60, device=None) -> Tree:
+    """One jackknife replicate by `ml_tree` on its mask: NNI only
+    (`spr_rounds=0`), like the batched path, with refits of
+    max(bl_steps // 2, 20) steps."""
+    w = jackknife_mask(cat, rep_idx, seed, fraction)
+    tree, _ = ml_tree(cat.mat, cat.taxa, model, site_weights=w,
+                      nni_rounds=nni_rounds, bl_steps=bl_steps,
+                      bl_refine_steps=max(bl_steps // 2, 20),
+                      spr_rounds=0, device=device)
+    return tree
+
+
 def support_trees(cat: ConcatenatedAlignment, reps: int, seed: int, *,
                   model: WagModel | None = None, method: str = "fast_ml",
                   fraction: float = 0.5, nni_rounds: int = 2,
                   bl_steps: int = 60, device=None) -> list[Tree]:
-    """Build `reps` jackknife support trees by the batched replicate
-    fan-out (`ml` and `fast_ml`; the JAX package also takes this path
-    for every `reps` > 1).  Not ported yet: the `nj` method, bootstrap
-    resampling as an option, and the serial one-replicate path."""
+    """Build `reps` jackknife support trees (`ml` and `fast_ml`): the
+    batched replicate fan-out for `reps` > 1, `support_tree_single` for
+    one replicate, as in the JAX package.  Not ported yet: the `nj`
+    method and bootstrap resampling as an option."""
     if method not in ("ml", "fast_ml"):
         raise ValueError(f"support method {method!r} is not ported yet "
                          "(ml and fast_ml are)")
+    if model is None:
+        model = WagModel.create()
+    if reps == 1:
+        return [support_tree_single(cat, 0, seed, model=model,
+                                    fraction=fraction,
+                                    nni_rounds=nni_rounds,
+                                    bl_steps=bl_steps, device=device)]
     return support_trees_batched(cat, reps, seed, model=model,
                                  fraction=fraction, nni_rounds=nni_rounds,
                                  bl_steps=bl_steps, device=device)

@@ -62,8 +62,11 @@ def test_build_command_targets_sm90a_without_torch_headers():
     assert "atomicAdd" not in src  # the gradient is reduced in order
     assert _cuda.lib_path("pruning").startswith(_cuda.BUILD_DIR)
     assert "pruning" in _cuda.SOURCES
-    for macro, value in (("S_TILE", pruning.S_TILE),
-                         ("MAXC", pruning.MAX_CATS)):
+    for macro, value in (("WARP", pruning.WARP),
+                         ("MAXC", pruning.MAX_CATS),
+                         ("PLAN_W", pruning.PLAN_W),
+                         ("SITES_PER_LANE", pruning.SITES_PER_LANE),
+                         ("WARPS_PER_CAT", pruning.WARPS_PER_CAT)):
         assert re.search(rf"#define {macro} {value}\b", src), macro
 
 

@@ -111,3 +111,36 @@ def test_support_trees_batched_match_jax(families):
                              device="cpu")
     for a, b in zip(got, want):
         assert rf_distance(a, parse_newick(jto_newick(b))) == 0
+
+
+def _strip_lengths(nwk):
+    import re
+    return re.sub(r":[-+0-9.eE]+", "", nwk)
+
+
+@pytest.mark.parametrize("seed", [19, 20, 21])
+def test_single_replicate_matches_jax_serial_path(seed, monkeypatch):
+    """`support_trees(reps=1)` takes the serial `support_tree_single` in
+    both packages (NNI only, refits of max(bl_steps // 2, 20) steps),
+    never the batched fan-out: the same rooted Newick topology and
+    branch lengths within 1e-5."""
+    def batched(*args, **kwargs):
+        raise AssertionError("reps == 1 took the batched path")
+    monkeypatch.setattr(tsup, "support_trees_batched", batched)
+    rng = np.random.default_rng(seed)
+    taxa = [f"T{i}" for i in range(10)]
+    tree = random_tree(taxa, rng)
+    fams = simulate_families(tree, rng.integers(40, 90, size=10), rng,
+                             alpha=0.7)
+    j = jconcat([JAlignment(n, t, c) for n, t, c in fams])
+    t = tconcat([TAlignment(n, t, c) for n, t, c in fams])
+    jm = jlik.WagModel.create(alpha=0.8)
+    (want,) = jsup.support_trees(j, 1, 3, model=jm, bl_steps=30)
+    (got,) = tsup.support_trees(t, 1, 3, model=_tmodel(jm), bl_steps=30,
+                                device="cpu")
+    w_nwk, g_nwk = jto_newick(want), to_newick(got)
+    assert _strip_lengths(g_nwk) == _strip_lengths(w_nwk)
+    w_arr = jlik.tree_to_arrays(want, list(t.taxa))
+    g_arr = tlik.tree_to_arrays(got, list(t.taxa))
+    np.testing.assert_array_equal(g_arr.children, w_arr.children)
+    np.testing.assert_allclose(g_arr.blen, w_arr.blen, rtol=0, atol=1e-5)
