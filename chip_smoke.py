@@ -15,12 +15,18 @@ Phases, each printing one JSON line with the elapsed seconds:
            3 families of 2,100-2,600 residues, 100 random proteins each)
   sw_kernel  the SW kernel against its plain PyTorch version on the card:
            up to 256 real pairs of the stage-1 pair list from every
-           length bucket (BLOSUM62 11/1) and one bucket of planted ACGT
+           length bucket (BLOSUM62 11/1), the planted ties of
+           planted_tie_pairs (two top cells either side of a strip or
+           lane boundary of the kernel's walk, or in one row; query
+           lengths 255-257 and 511-513) and one bucket of planted ACGT
            pairs under blastn 5/2; all five outputs must be equal (the
-           plain version's time on each bucket's pairs is printed); then
-           one launch at the main path's batch size for the bucket with
-           the most pairs, timed, held against the plain version on the
-           same batch
+           plain version's time on each bucket's pairs is printed); the
+           same pairs embedded in a bucket twice as long on each side
+           (more trailing PAD) must give identical outputs; then one
+           launch at the main path's batch size for the bucket with the
+           most pairs, timed, held against the plain version on the
+           same batch; and every bucket at the main path's launches,
+           each timed, beside its bound (per_bucket)
   small_stage1  run_stage1 on a small input on the card and on the CPU:
            identical groups and selected outgroups
   stage1   run_stage1 (use_hmm=False, outgroup_count=2) at full size;
@@ -186,6 +192,63 @@ def planted_nt_pairs(rng, n: int, lq: int, lt: int):
         keep = rng.random(nq) >= 0.03  # deletions
         piece = piece[keep]
         q[b, :len(piece)] = piece
+    return q, t
+
+
+# The planted tie of tests/test_torch_sw_ties.py (AA_ORDER codes): motif
+# X scores 105 against itself over 10 identical residues, motif Z (27 A)
+# 105 against a copy with one A -> S over 27 columns.  The query's
+# filler I and the target's filler P score below 0 against every residue
+# of the other side.
+TIE_X = [17] * 8 + [4, 8]
+TIE_ZQ = [0] * 27
+TIE_ZT = [0] * 13 + [15] + [0] * 13
+TIE_QFILL, TIE_TFILL = 9, 14
+# query lengths 32 R - 1, 32 R and 32 R + 1 for strips of R = 8 and
+# 16 rows a lane (the kernel takes 8 at most: one strip, then two)
+TIE_LENGTHS = (255, 256, 257, 511, 512, 513)
+
+
+def planted_tie_pairs(lengths=TIE_LENGTHS, lt: int = 100):
+    """(query, target) int8 code arrays with two top cells of score 105,
+    placed against the SW kernel's walk (`ops/sw.strip_layout`) for
+    each query length: the two cells in the rows either side of the
+    first strip boundary (of the middle lane boundary when the query
+    takes one strip), X's first and then Z's first; and one query row
+    ending X against two copies of X in the target (the same row at two
+    columns)."""
+    import numpy as np
+    from pepr_tpu_torch.ops.sw import WARP, strip_layout
+
+    def fill(x, n, code):
+        return np.array(x + [code] * (n - len(x)), np.int8)
+
+    pairs = []
+    for L in lengths:
+        n, rows = strip_layout(L)
+        b = WARP * rows if n > 1 else rows * (WARP // 2)
+        # the target holds the motifs in the other order, so that no
+        # alignment joins them
+        for first, second, t in ((TIE_X, TIE_ZQ, TIE_ZT + [TIE_TFILL] * 20
+                                  + TIE_X),
+                                 (TIE_ZQ, TIE_X, TIE_X + [TIE_TFILL] * 20
+                                  + TIE_ZT)):
+            q = [TIE_QFILL] * (b - len(first)) + first + second
+            pairs.append((fill(q, L, TIE_QFILL), fill(t, lt, TIE_TFILL)))
+        q = [TIE_QFILL] * (b - len(TIE_X)) + TIE_X
+        t2 = [TIE_TFILL] * 5 + TIE_X + [TIE_TFILL] * 30 + TIE_X
+        pairs.append((fill(q, L, TIE_QFILL), fill(t2, lt, TIE_TFILL)))
+    return pairs
+
+
+def padded(pairs, lq: int, lt: int):
+    """(B, lq) and (B, lt) int8 codes of (query, target) pairs,
+    PAD-filled."""
+    import numpy as np
+    q = np.full((len(pairs), lq), 24, np.int8)
+    t = np.full((len(pairs), lt), 24, np.int8)
+    for b, (x, y) in enumerate(pairs):
+        q[b, :len(x)], t[b, :len(y)] = x, y
     return q, t
 
 
@@ -401,6 +464,76 @@ class _Messages(logging.Handler):
         self.lines.append(record.getMessage())
 
 
+def stage1_genomes(seed: int):
+    """The stage-1 input at the Aquificales shape: (ingroup, pool)."""
+    import numpy as np
+    from pepr_tpu_torch.utils.simulate import simulate_genomes
+    ingroup, pool, _ = simulate_genomes(
+        np.random.default_rng(seed + 10), n_ingroup=S1_INGROUP,
+        n_pool=S1_POOL, n_families=S1_FAMILIES, n_random=S1_RANDOM)
+    return ingroup, pool
+
+
+def stage1_pair_list(ingroup, dev):
+    """The SW pair list of stage 1's all-vs-all search: (pairs_q, real
+    lengths, eff_q, eff_t, buckets, the codes packed on `dev`), as
+    `search_all_vs_all` and `_bucketed_sw` build them."""
+    import numpy as np
+    from pepr_tpu_torch.models.homology import (ProteinUniverse,
+                                                candidate_union, pack_codes,
+                                                sw_buckets)
+    universe = ProteinUniverse.build(ingroup)
+    pairs_q, pairs_t = candidate_union(universe, device=dev)
+    eff_q, eff_t, buckets = sw_buckets(universe.lengths, pairs_q, pairs_t)
+    return (pairs_q, universe.lengths.astype(np.int64), eff_q, eff_t,
+            buckets, pack_codes(universe.seqs, device=dev))
+
+
+def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
+                    sm_clock_mhz: float, reps: int = 3) -> dict:
+    """Every bucket of a pair list cut into launches as the main path
+    cuts it (`models/homology._bucketed_sw`: a bucket's pairs sorted by
+    real cells, largest first, then batches of `batch_pairs`), each
+    launch timed (median of `reps` CUDA-event timings after one
+    warm-up).  Per bucket: pairs, launches, real and padded cells, ms
+    (summed over its launches), ms per launch, the bound, real GCUPS and
+    the bound's share of the time; and the totals.  Uses only what the
+    port has had since the SW kernel came, so that `chip_turns.py` can
+    time an earlier checkout's kernel on the same launches."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.models.homology import batch_pairs
+    from pepr_tpu_torch.ops import sw
+
+    rows = []
+    for (blq, blt), idx in buckets.items():
+        cells = ulens[eff_q[idx]] * ulens[eff_t[idx]]
+        idx = idx[np.argsort(-cells, kind="stable")]
+        step = batch_pairs(blq, blt, dev)
+        ms = 0.0
+        for s0 in range(0, len(idx), step):
+            sel = idx[s0:s0 + step]
+            q = codes[torch.as_tensor(eff_q[sel], device=dev), :blq]
+            t = codes[torch.as_tensor(eff_t[sel], device=dev), :blt]
+            ms += time_ms(lambda: sw.sw_align(q, t, sub), reps)
+        launches = -(-len(idx) // step)
+        real = int(cells.sum())
+        bound_ms, _ = sw_bound(real, len(idx) * (blq + blt), len(idx),
+                               sm_clock_mhz)
+        rows.append([blq, blt, len(idx), launches, real,
+                     len(idx) * blq * blt, round(ms, 4),
+                     round(ms / launches, 4), round(bound_ms, 4),
+                     round(real / ms / 1e6, 2), round(bound_ms / ms, 4)])
+    tot_ms = sum(r[6] for r in rows)
+    tot_bound = sum(r[8] for r in rows)
+    return dict(columns=["blq", "blt", "pairs", "launches", "real_cells",
+                         "padded_cells", "ms", "ms_per_launch", "bound_ms",
+                         "gcups_real", "bound_share"],
+                rows=rows, launches=sum(r[3] for r in rows),
+                ms=round(tot_ms, 3), bound_ms=round(tot_bound, 3),
+                bound_share=round(tot_bound / tot_ms, 4))
+
+
 def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     """The stage-1 path: data_stage1, sw_kernel, small_stage1 and stage1;
     returns the SW kernel's entry of the kernels line."""
@@ -409,9 +542,7 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
 
     from pepr_tpu_torch.data.nt_scores import (NT_GAP_EXTEND, NT_GAP_OPEN,
                                                nt_kernel_matrix)
-    from pepr_tpu_torch.models.homology import (ProteinUniverse, batch_pairs,
-                                                candidate_union, pack_codes,
-                                                sw_buckets)
+    from pepr_tpu_torch.models.homology import _pow2_len, batch_pairs
     from pepr_tpu_torch.ops import sw
     from pepr_tpu_torch.ops.smith_waterman import (kernel_matrix,
                                                    sw_align_batch)
@@ -420,9 +551,7 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
 
     # -- data_stage1
     t = time.time()
-    ingroup, pool, _ = simulate_genomes(
-        np.random.default_rng(seed + 10), n_ingroup=S1_INGROUP,
-        n_pool=S1_POOL, n_families=S1_FAMILIES, n_random=S1_RANDOM)
+    ingroup, pool = stage1_genomes(seed)
     lens = np.concatenate([g.lengths() for g in ingroup])
     phase("data_stage1", seconds=round(time.time() - t, 3),
           ingroup_genomes=len(ingroup), pool_genomes=len(pool),
@@ -434,12 +563,9 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
 
     # -- sw_kernel: the stage-1 pair list, bucket by bucket
     t = time.time()
-    universe = ProteinUniverse.build(ingroup)
-    pairs_q, pairs_t = candidate_union(universe, device=dev)
-    eff_q, eff_t, buckets = sw_buckets(universe.lengths, pairs_q, pairs_t)
-    codes = pack_codes(universe.seqs, device=dev)
+    pairs_q, ulens, eff_q, eff_t, buckets, codes = stage1_pair_list(ingroup,
+                                                                    dev)
     sub = sw.integer_sub(kernel_matrix(), dev)
-    ulens = universe.lengths.astype(np.int64)
     # the DP cells of the whole pair list: real, padded to the buckets,
     # and the padded share of the buckets with 4,096-long targets
     pad_cells = {k: len(i) * k[0] * k[1] for k, i in buckets.items()}
@@ -462,7 +588,14 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
                  f"max abs err {err}")
         return err
 
-    checked = []
+    def embedded(q, tt):
+        """The same pairs with more trailing PAD: twice the bucket's
+        lengths, at most MAX_LEN."""
+        return tuple(torch.nn.functional.pad(
+            x, (0, min(2 * x.shape[1], sw.MAX_LEN) - x.shape[1]),
+            value=24).contiguous() for x in (q, tt))
+
+    checked, n_embedded = [], 0
     for (blq, blt), idx in buckets.items():
         take = idx[np.linspace(0, len(idx) - 1,
                                min(len(idx), SW_CHECK_PAIRS)).astype(int)]
@@ -470,18 +603,39 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
         got = sw.sw_align(q, tt, sub)
         want, plain_ms = timed(lambda: sw_align_batch(q, tt, sub))
         compare(got, want, f"bucket ({blq}, {blt})")
+        # PAD tails: the same pairs in a larger bucket, all five outputs
+        # identical
+        qe, te = embedded(q, tt)
+        if qe.shape != q.shape or te.shape != tt.shape:
+            compare(sw.sw_align(qe, te, sub), got,
+                    f"bucket ({blq}, {blt}) embedded in {tuple(qe.shape[1:])}"
+                    f" x {tuple(te.shape[1:])}")
+            n_embedded += 1
         checked.append([blq, blt, len(idx), len(take), plain_ms])
+    # planted ties at the walk's strip and lane boundaries, in their own
+    # bucket and embedded in a larger one
+    ties = planted_tie_pairs()
+    for L in sorted({len(a) for a, _ in ties}):
+        group = [p for p in ties if len(p[0]) == L]
+        q, tt = (torch.as_tensor(x, device=dev) for x in padded(
+            group, _pow2_len(L), _pow2_len(len(group[0][1]))))
+        got = sw.sw_align(q, tt, sub)
+        compare(got, sw_align_batch(q, tt, sub), f"the planted ties, query "
+                f"length {L}")
+        compare(sw.sw_align(*embedded(q, tt), sub), got,
+                f"the planted ties, query length {L}, embedded")
+        if float(got["score"].min()) != 105:
+            fail(f"the planted ties at query length {L} lost their score")
     # blastn 5/2 on planted ACGT pairs, at the dominant bucket's shape
     (blq, blt), idx = max(buckets.items(), key=lambda kv: len(kv[1]))
     qn, tn = planted_nt_pairs(np.random.default_rng(seed + 11),
                               SW_CHECK_PAIRS, blq, blt)
     qn, tn = torch.as_tensor(qn, device=dev), torch.as_tensor(tn, device=dev)
     nsub = sw.integer_sub(nt_kernel_matrix(), dev)
-    compare(sw.sw_align(qn, tn, nsub, NT_GAP_OPEN, NT_GAP_EXTEND),
-            sw_align_batch(qn, tn, nsub, NT_GAP_OPEN, NT_GAP_EXTEND),
+    nt_want = sw_align_batch(qn, tn, nsub, NT_GAP_OPEN, NT_GAP_EXTEND)
+    compare(sw.sw_align(qn, tn, nsub, NT_GAP_OPEN, NT_GAP_EXTEND), nt_want,
             f"the 5/2 set ({blq}, {blt})")
-    nt_best = float(sw_align_batch(qn, tn, nsub, NT_GAP_OPEN,
-                                   NT_GAP_EXTEND)["score"].max())
+    nt_best = float(nt_want["score"].max())
     # one launch at the main path's batch size for the dominant bucket,
     # and the plain version on the same batch
     n_main = min(len(idx), batch_pairs(blq, blt, dev))
@@ -492,23 +646,32 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     want, plain_ms = timed(lambda: sw_align_batch(q, tt, sub))
     err = compare(got, want, f"the main batch ({blq}, {blt}) x {n_main}")
     real = int((ulens[eff_q[sel]] * ulens[eff_t[sel]]).sum())
-    padded = n_main * blq * blt
+    padded_cells = n_main * blq * blt
     bound_ms, bound_by = sw_bound(real, n_main * (blq + blt), n_main,
                                   sm_clock_mhz)
     entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by,
                  shape=[n_main, blq, blt], real_cells=real,
-                 padded_cells=padded, gcups_real=real / ms / 1e6,
-                 gcups_padded=padded / ms / 1e6)
-    del q, tt, got, want, qn, tn, codes
+                 padded_cells=padded_cells, gcups_real=real / ms / 1e6,
+                 gcups_padded=padded_cells / ms / 1e6,
+                 registers=sw.library().sw_num_regs(),
+                 blocks_per_sm=sw.library().sw_blocks_per_sm())
+    del q, tt, got, want, qn, tn
+    # every bucket at the main path's batches, each launch timed
+    table = sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
+                            sm_clock_mhz)
+    del codes
     torch.cuda.empty_cache()
     phase("sw_kernel", seconds=round(time.time() - t, 3),
           union_pairs=int(len(pairs_q)), pair_list_cells=list_cells,
           buckets_checked=dict(
               columns=["blq", "blt", "pairs", "checked", "plain_ms"],
               rows=checked),
+          embedded_buckets=n_embedded,
+          planted_ties=dict(query_lengths=list(TIE_LENGTHS),
+                            pairs=len(ties)),
           nt_check=dict(shape=[SW_CHECK_PAIRS, blq, blt],
-                        best_score=nt_best), **entry)
+                        best_score=nt_best), per_bucket=table, **entry)
 
     # -- small_stage1: the card against the CPU's plain path
     t = time.time()

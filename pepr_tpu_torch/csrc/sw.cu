@@ -4,7 +4,8 @@
 //   sw_kernel  <- pepr_tpu/ops/pallas_sw.py::_kernel
 //
 // What it computes, for every pair b of the batch (the function of
-// sw_align_numpy in ops/smith_waterman.py), in int32:
+// sw_align_numpy and of the plain sw_align_batch in
+// ops/smith_waterman.py), in int32:
 //   E(i,j) = max(H(i,j-1) - go, E(i,j-1) - ge)   opening wins ties
 //   F(i,j) = max(H(i-1,j) - go, F(i-1,j) - ge)   opening wins ties
 //   H(i,j) = max(0, H(i-1,j-1) + sub[q_i][t_j], E(i,j), F(i,j))
@@ -13,226 +14,429 @@
 // first, then E, then F, and 0 where H <= 0.  The best cell is the one
 // with the top score, the smallest query position among those, then
 // the smallest target position: each query row keeps its own best by a
-// strict > along the target, and a block reduction takes the first row
+// strict > along the target, and a warp reduction takes the first row
 // with the top score (the Pallas kernel's per-lane best and final
 // argmax).  F is exact, so any gap_open >= 0 and gap_extend >= 0 work.
 //
-// Design (simple and right first).  One thread block aligns one pair.
-// Each thread owns R consecutive query rows and keeps their DP state
-// (H of the last two anti-diagonals, E, F, their trackers and the
-// row's running best) in registers.  The block walks the Lq + Lt - 1
-// anti-diagonals; every cell of a diagonal is independent.  Within a
-// thread the rows are updated from the last to the first, so a row
-// reads its upper neighbour's values of the previous diagonals before
-// they are overwritten.  The first row of a thread takes its upper
-// neighbour's values from the previous thread, which publishes its last
-// row's H, F and trackers in shared memory after every diagonal (double
-// buffered, one __syncthreads per diagonal).  The target and the
-// substitution table sit in shared memory.
+// Only the real cells are walked.  A pair's real lengths are its codes
+// less their trailing run of codes that read as PAD (clamp_code maps
+// anything outside 0..24 to PAD; the encoders never put PAD inside a
+// sequence, and a PAD code inside is walked like any other code).  The
+// plain version walks the whole padded rectangle; the two agree on all
+// five outputs because:
+//   1. Every dependency of the recurrence goes from (i, j) to (i, j+1),
+//      (i+1, j) or (i+1, j+1).  The PAD rows and columns lie below and
+//      right of every real cell, so no PAD cell feeds a real cell: the
+//      real cells' values and trackers are the same either way.
+//   2. Order the cells as the best-cell rule does: row first, then
+//      column.  Let every score in the PAD row and the PAD column of
+//      sub be <= 0, and go, ge >= 0.  A PAD cell's H is 0 or one of
+//        d = H(i-1,j-1) + s  <= H(i-1,j-1)        (s <= 0: a PAD code)
+//        E(i,j)              <= H(i,k) for some k < j  (E only falls)
+//        F(i,j)              <= H(k,j) for some k < i  (F only falls)
+//      each the H of a cell earlier in that order.  By induction every
+//      PAD cell's H is at most the H of some real cell earlier in the
+//      order, or is 0 (which never enters a best: the bests start at 0
+//      and move on a strict >).  So no PAD cell is the top score's first
+//      cell: where it ties the top score, an earlier real cell holds it.
+// The wrapper (ops/sw.py::sw_align) refuses a matrix with a positive
+// PAD entry rather than walk the padding.  The kernel also gives PAD
+// codes to the rows of its last strip that lie past the real query
+// (see below); by 2 they can never win either.
 //
-// What bounds it on this card: int32 operations (about 20 per cell for
-// the recurrence and its trackers) and, in this design, the barrier per
-// anti-diagonal.  The bytes moved are the codes, a few bytes per cell
-// row, so memory does not bind.  What this design leaves for the later
-// fast version: Hopper's DPX instructions (__viaddmax_s32 for the
-// add-then-max of E, F and the diagonal, __vimax3_s32 for the
-// three-way max), skipping the PAD tails of the power-of-two buckets
-// (rows and diagonals past the real lengths), a query profile instead
-// of the table lookup, and packing several short pairs into one block
-// (or one pair per warp with shuffles) so that the ramps of the
-// anti-diagonal walk and the barriers cost less.
+// Design.  One warp aligns one pair; the warps of a persistent grid
+// take pairs from a counter, in the order given (models/homology.py's
+// _bucketed_sw sorts a bucket's pairs by real cells, largest first).  Each lane holds R
+// consecutive query rows (R <= MAX_ROWS, the same for every lane of a
+// pair) in registers: H and E of the previous column, their trackers,
+// and each row's best.  A strip is 32 R rows; a query of lq real rows
+// takes n = ceil(lq / (32 MAX_ROWS)) strips of R = ceil(lq / (32 n))
+// rows a lane, so the last strip wastes fewer than 32 R rows.  The
+// lanes form an anti-diagonal wavefront: at step g lane l works on
+// column c = g - l - s P of strip s (P = max(lt, 33)), after the lane
+// above it.  At the end of each step a lane hands its bottom row's H, F
+// and trackers, and the target code, to the next lane by __shfl_up_sync:
+// no block barrier, no shared-memory exchange per step.  Lane 0 takes
+// its row above from a per-warp strip buffer in global memory (L2
+// resident; __stcg / __ldcg), which the warp fills with the boundary
+// row before the walk: lane 31 writes its bottom row there for each
+// column, and lane 0 reads it back in the next strip, a step ahead of
+// use (P >= 33 keeps the read after the write).  Beside it lie the
+// target's codes as table offsets, clamped once per pair.  The strips
+// follow each other without a gap, so the wavefront ramps once a pair
+// (31 steps), not once a strip.  A step's cells in a lane run top to
+// bottom; a row's best moves only on a strict > along the target, and
+// rows reach the lane's best in row order, so the tie order of the
+// plain version is kept.
+//
+// What bounds it on this card: int32 operations, about 20 a cell in
+// the algorithm (chip_smoke.py's SW_OPS_PER_CELL) and about 26 here
+// (the tie order needs explicit compares beside the maxima), plus about
+// 40 a step for the hand-over, the strip buffer and the loop, shared
+// by a lane's R rows.  Bytes do not bind: the codes, and 32 bytes a
+// strip row and column through L2.  DPX does the add-then-max of E and
+// F (__viaddmax_s32) and the four-way max of H (__vimax3_s32_relu).  H
+// is kept as H - go, from which both E and F open, and the table in
+// shared memory holds, per (query code, target code), sub + go and the
+// diagonal's tracker increment as one int2: one load and two adds make
+// the diagonal and its tracker.  The table is held SUB_COPIES = 16
+// times, interleaved; a 64-bit load is served a half-warp at a time, so
+// the lanes, reading different entries, never conflict on a bank.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define N_CODES 25      // codes 0..24; PAD = 24
+#define WARP 32
+#define FULL_MASK 0xFFFFFFFFu
+#define N_CODES 25          // codes 0..24; PAD = 24
 #define PAD_CODE 24
-#define SUB_LD 32       // row stride of the shared substitution table
-#define MAX_LEN 4096    // longest query or target
-#define MAX_THREADS 512
+#define MAX_LEN 4096        // longest query or target
+#ifndef MAX_ROWS
+#define MAX_ROWS 8          // query rows a lane holds at most
+#endif
+#define WARPS_PER_BLOCK 8
+#ifndef SUB_COPIES
+#define SUB_COPIES 16       // copies of the table, one per half-warp lane
+#endif
+#ifndef MIN_BLOCKS
+#define MIN_BLOCKS 2        // resident blocks per SM asked of ptxas
+#endif
+#define SUB_ENTRIES (N_CODES * N_CODES * SUB_COPIES)
+#define SUB_BYTES (SUB_ENTRIES * (int)sizeof(int2))
 #define NEG_INF (-(1 << 28))
+#define SCRATCH_HEAD 256    // bytes before the strip buffers: the counter
 
 __device__ __forceinline__ int clamp_code(int c) {
     return (c < 0 || c >= N_CODES) ? PAD_CODE : c;
 }
 
+// 1 + the index of the last code that does not read as PAD; 0 if none.
+__device__ int real_length(const int8_t* __restrict__ s, int L, int lane) {
+    for (int base = L - WARP; base > -WARP; base -= WARP) {
+        const int x = base + lane;
+        const bool real = x >= 0 && clamp_code(s[x]) != PAD_CODE;
+        const unsigned m = __ballot_sync(FULL_MASK, real);
+        if (m) return base + WARP - __clz(m);
+    }
+    return 0;
+}
+
+__host__ __device__ __forceinline__ int strips_for(int lq) {
+    return (lq + WARP * MAX_ROWS - 1) / (WARP * MAX_ROWS);
+}
+
+struct Best {
+    int v, row, j, ml;
+};
+
+// Fold a strip's row bests into the lane's best, rows in order.
 template <int R>
-__global__ void __launch_bounds__(MAX_THREADS)
-sw_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
-          const int32_t* __restrict__ sub, int Lq, int Lt, int go, int ge,
-          float* __restrict__ score, int32_t* __restrict__ matches,
-          int32_t* __restrict__ length, int32_t* __restrict__ q_end,
-          int32_t* __restrict__ t_end) {
-    __shared__ int32_t s_sub[N_CODES * SUB_LD];
-    __shared__ int8_t s_t[MAX_LEN];
-    __shared__ int32_t s_h[2][MAX_THREADS];
-    __shared__ int32_t s_f[2][MAX_THREADS];
-    __shared__ int32_t s_mlh[2][MAX_THREADS];
-    __shared__ int32_t s_mlf[2][MAX_THREADS];
-    __shared__ unsigned long long s_key[MAX_THREADS / 32];
-
-    const int b = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int nth = blockDim.x;
-    const int8_t* qb = q + (long long)b * Lq;
-    const int8_t* tb = t + (long long)b * Lt;
-    for (int x = tid; x < N_CODES * N_CODES; x += nth)
-        s_sub[(x / N_CODES) * SUB_LD + x % N_CODES] = sub[x];
-    for (int x = tid; x < Lt; x += nth) s_t[x] = (int8_t)clamp_code(tb[x]);
-
-    const int i0 = tid * R;
-    int qc[R];                        // query code of each row
-    int hp1[R], hp2[R], e[R], f[R];   // H at diagonals k-1, k-2; E, F
-    int mlh1[R], mlh2[R], mle[R], mlf[R];
-    int bv[R], bml[R], bj[R];         // the row's best: score, tracker, j
+__device__ __forceinline__ void fold(Best& b, const int* bv, const int* bml,
+                                     const int* bj, int i0) {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-        const int i = i0 + r;
-        qc[r] = i < Lq ? clamp_code(qb[i]) : PAD_CODE;
-        hp1[r] = hp2[r] = 0;
-        e[r] = f[r] = NEG_INF;
-        mlh1[r] = mlh2[r] = mle[r] = mlf[r] = 0;
-        bv[r] = bml[r] = bj[r] = 0;
-    }
-    // row i0 - 1 (the previous thread's last row, or the boundary above
-    // row 0): H and tracker at diagonals k-1 and k-2, F and its tracker
-    // at k-1
-    int nh1 = 0, nh2 = 0, nf1 = NEG_INF, nmlh1 = 0, nmlh2 = 0, nmlf1 = 0;
-    __syncthreads();
-
-    const int n_diag = Lq + Lt - 1;
-    for (int k = 0; k < n_diag; ++k) {
-        if (tid > 0 && k > 0) {
-            const int buf = (k - 1) & 1;
-            nh2 = nh1;
-            nmlh2 = nmlh1;
-            nh1 = s_h[buf][tid - 1];
-            nf1 = s_f[buf][tid - 1];
-            nmlh1 = s_mlh[buf][tid - 1];
-            nmlf1 = s_mlf[buf][tid - 1];
+        if (bv[r] > b.v) {
+            b.v = bv[r];
+            b.row = i0 + r;
+            b.j = bj[r];
+            b.ml = bml[r];
         }
-#pragma unroll
-        for (int r = R - 1; r >= 0; --r) {
-            const int i = i0 + r;
-            const int j = k - i;
-            if (i < Lq && j >= 0 && j < Lt) {
-                const int u = r > 0 ? r - 1 : 0;               // row i-1
-                const int up_h = r > 0 ? hp1[u] : nh1;         // H(i-1, j)
-                const int up_f = r > 0 ? f[u] : nf1;           // F(i-1, j)
-                const int up_mlh = r > 0 ? mlh1[u] : nmlh1;
-                const int up_mlf = r > 0 ? mlf[u] : nmlf1;
-                const int dg_h = r > 0 ? hp2[u] : nh2;         // H(i-1, j-1)
-                const int dg_ml = r > 0 ? mlh2[u] : nmlh2;
-                const int tc = s_t[j];
-                // E: gap consuming the target, from (i, j-1)
-                const int eo = hp1[r] - go, ee = e[r] - ge;
-                const bool e_open = eo >= ee;
-                const int ev = e_open ? eo : ee;
-                const int mle_v = (e_open ? mlh1[r] : mle[r]) + 1;
-                // F: gap consuming the query, from (i-1, j)
-                const int fo = up_h - go, fe = up_f - ge;
-                const bool f_open = fo >= fe;
-                const int fv = f_open ? fo : fe;
-                const int mlf_v = (f_open ? up_mlh : up_mlf) + 1;
-                // diagonal: match or mismatch
-                const int d = dg_h + s_sub[qc[r] * SUB_LD + tc];
-                const int mld = dg_ml + ((qc[r] == tc) << 16) + 1;
-                const int h = max(max(d, ev), max(fv, 0));
-                const int ml = h <= 0 ? 0
-                             : (h == d ? mld : (h == ev ? mle_v : mlf_v));
-                if (h > bv[r]) {
-                    bv[r] = h;
-                    bml[r] = ml;
-                    bj[r] = j;
-                }
-                hp2[r] = hp1[r];
-                hp1[r] = h;
-                e[r] = ev;
-                f[r] = fv;
-                mlh2[r] = mlh1[r];
-                mlh1[r] = ml;
-                mle[r] = mle_v;
-                mlf[r] = mlf_v;
-            }
-        }
-        const int buf = k & 1;
-        s_h[buf][tid] = hp1[R - 1];
-        s_f[buf][tid] = f[R - 1];
-        s_mlh[buf][tid] = mlh1[R - 1];
-        s_mlf[buf][tid] = mlf[R - 1];
-        __syncthreads();
-    }
-
-    // the thread's best: top score, first row
-    int v = bv[0], vi = i0, vj = bj[0], vml = bml[0];
-#pragma unroll
-    for (int r = 1; r < R; ++r) {
-        if (bv[r] > v) {
-            v = bv[r];
-            vi = i0 + r;
-            vj = bj[r];
-            vml = bml[r];
-        }
-    }
-    // the block's best: max of (score, -row) as one 64-bit key
-    const unsigned long long mine =
-        ((unsigned long long)(unsigned)v << 32) | (0xFFFFFFFFu - (unsigned)vi);
-    unsigned long long key = mine;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const unsigned long long o = __shfl_down_sync(0xFFFFFFFFu, key, off);
-        key = o > key ? o : key;
-    }
-    if ((tid & 31) == 0) s_key[tid >> 5] = key;
-    __syncthreads();
-    if (tid == 0) {
-        unsigned long long m = s_key[0];
-        for (int w = 1; w < nth / 32; ++w) m = s_key[w] > m ? s_key[w] : m;
-        s_key[0] = m;
-    }
-    __syncthreads();
-    if (mine == s_key[0]) {
-        score[b] = (float)v;
-        matches[b] = vml >> 16;
-        length[b] = vml & 0xFFFF;
-        q_end[b] = vi;
-        t_end[b] = vj;
     }
 }
 
-// Threads for a query of Lq rows: R = 4 rows a thread (8 above 2,048),
-// rounded up to whole warps (at most MAX_THREADS).
-static int sw_threads(int Lq) {
-    const int rows = Lq <= 2048 ? 4 : 8;
-    const int n = (Lq + rows - 1) / rows;
-    return (n + 31) / 32 * 32;
+// The table entry at a shared-memory byte address.
+__device__ __forceinline__ int2 table_at(unsigned addr) {
+    int2 v;
+    asm("ld.shared.v2.s32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "r"(addr));
+    return v;
+}
+
+// The walk of one pair by one warp, R rows a lane.  H is kept as
+// H - go (hg, ag, gg below), the form both E and F open from; the table
+// holds sub + go beside each entry's tracker increment, so that the
+// diagonal is one add and its tracker another.  buf holds, per column,
+// the row above lane 0 (the boundary before strip 0), and tt the target
+// code's byte offset in the table.
+template <int R>
+__device__ __forceinline__ void walk(const int8_t* __restrict__ qb, int lq,
+                                     int lt, int n_strips, unsigned tab,
+                                     int go, int ge, int4* buf,
+                                     const short* tt, int lane, Best& best) {
+    const int P = max(lt, WARP + 1);
+    const int n_steps = n_strips * P + WARP - 1;
+    const unsigned copy = (lane % SUB_COPIES) * sizeof(int2);
+    unsigned qaddr[R];                 // the row's table address
+    int hg[R], e[R], mlh[R], mle[R];   // H - go, E and trackers at c-1
+    int bv[R], bml[R], bj[R];          // the row's best: score, tracker, j
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        qaddr[r] = tab;
+        mlh[r] = mle[r] = bv[r] = bml[r] = bj[r] = 0;
+        hg[r] = -go;
+        e[r] = NEG_INF;
+    }
+    int c = -lane, s = 0;              // this lane's cell at step g
+    int dg = -go, dml = 0;             // H - go and tracker of (i0-1, c-1)
+    int ug = -go, uf = NEG_INF, umlh = 0, umlf = 0;   // (i0 - 1, c)
+    int t_off = 0;
+    // lane 0: the inputs of its cell at the next step, loaded a step
+    // ahead; pc is that cell's column
+    int4 nxt = __ldcg(buf);
+    int nxt_t = __ldcg(tt), pc = 0;
+
+    for (int g = 0; g < n_steps; ++g) {
+        if (c == 0 && s < n_strips) {  // this lane starts strip s
+            if (s > 0)
+                fold<R>(best, bv, bml, bj, (s - 1) * WARP * R + lane * R);
+            const int i0 = s * WARP * R + lane * R;
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const int i = i0 + r;
+                const int code = i < lq ? clamp_code(qb[i]) : PAD_CODE;
+                qaddr[r] = tab + code * (N_CODES * SUB_COPIES * sizeof(int2))
+                           + copy;
+                mlh[r] = mle[r] = bv[r] = bml[r] = bj[r] = 0;
+                hg[r] = -go;
+                e[r] = NEG_INF;
+            }
+            dg = -go;
+            dml = 0;
+        }
+        if (lane == 0) {
+            ug = nxt.x;
+            uf = nxt.y;
+            umlh = nxt.z;
+            umlf = nxt.w;
+            t_off = nxt_t;
+            // the cell of step g + 1 reads the column that lane 31 wrote
+            // at step g + 32 - P <= g - 1, or the boundary
+            if (++pc == P) pc = 0;
+            nxt = __ldcg(buf + pc);
+            nxt_t = __ldcg(tt + pc);
+        }
+        // the bottom row, handed on
+        int og = -go, of = NEG_INF, oml = 0, omlf = 0;
+        if ((unsigned)c < (unsigned)lt && s < n_strips) {
+            int ag = ug, af = uf, aml = umlh, amlf = umlf; // above, column c
+            int gg = dg, gml = dml;                        // above, column c-1
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const int2 x = table_at(qaddr[r] + t_off);
+                const int d = gg + x.x;
+                const int mld = gml + x.y;
+                // E: gap consuming the target, from (i, c-1)
+                const int ev = __viaddmax_s32(e[r], -ge, hg[r]);
+                const int mle_v = (ev == hg[r] ? mlh[r] : mle[r]) + 1;
+                // F: gap consuming the query, from (i-1, c)
+                const int fv = __viaddmax_s32(af, -ge, ag);
+                const int mlf_v = (fv == ag ? aml : amlf) + 1;
+                const int h = __vimax3_s32_relu(d, ev, fv);
+                int ml = h == d ? mld : (h == ev ? mle_v : mlf_v);
+                ml = h > 0 ? ml : 0;
+                if (h > bv[r]) {
+                    bv[r] = h;
+                    bml[r] = ml;
+                    bj[r] = c;
+                }
+                gg = hg[r];
+                gml = mlh[r];
+                hg[r] = h - go;
+                e[r] = ev;
+                mlh[r] = ml;
+                mle[r] = mle_v;
+                ag = hg[r];
+                af = fv;
+                aml = ml;
+                amlf = mlf_v;
+            }
+            dg = ug;
+            dml = umlh;
+            og = ag;
+            of = af;
+            oml = aml;
+            omlf = amlf;
+            if (lane == WARP - 1 && s + 1 < n_strips)
+                __stcg(buf + c, make_int4(ag, af, aml, amlf));
+        }
+        // orders lane 31's buffer store before lane 0's later loads
+        __syncwarp();
+        ug = __shfl_up_sync(FULL_MASK, og, 1);
+        uf = __shfl_up_sync(FULL_MASK, of, 1);
+        umlh = __shfl_up_sync(FULL_MASK, oml, 1);
+        umlf = __shfl_up_sync(FULL_MASK, omlf, 1);
+        t_off = __shfl_up_sync(FULL_MASK, t_off, 1);
+        if (++c == P) {
+            c = 0;
+            ++s;
+        }
+    }
+    fold<R>(best, bv, bml, bj, (n_strips - 1) * WARP * R + lane * R);
+}
+
+// walk<rows> for 1 <= rows <= R
+template <int R>
+__device__ __forceinline__ void walk_rows(int rows, const int8_t* qb, int lq,
+                                          int lt, int n_strips, unsigned tab,
+                                          int go, int ge, int4* buf,
+                                          const short* tt, int lane,
+                                          Best& best) {
+    if (rows == R)
+        walk<R>(qb, lq, lt, n_strips, tab, go, ge, buf, tt, lane, best);
+    else if constexpr (R > 1)
+        walk_rows<R - 1>(rows, qb, lq, lt, n_strips, tab, go, ge, buf, tt,
+                         lane, best);
+}
+
+__global__ void __launch_bounds__(WARP * WARPS_PER_BLOCK, MIN_BLOCKS)
+sw_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ t,
+          const int32_t* __restrict__ sub, int B, int Lq, int Lt, int go,
+          int ge, float* __restrict__ score, int32_t* __restrict__ matches,
+          int32_t* __restrict__ length, int32_t* __restrict__ q_end,
+          int32_t* __restrict__ t_end, int* __restrict__ counter,
+          int4* __restrict__ bufs, short* __restrict__ tts, int cols) {
+    // [qc][tc][copy]: sub[qc][tc] + go and the tracker increment
+    extern __shared__ int2 s_tab[];
+    for (int x = threadIdx.x; x < SUB_ENTRIES; x += blockDim.x) {
+        const int at = x / SUB_COPIES;
+        s_tab[x] = make_int2(sub[at] + go,
+                             at / N_CODES == at % N_CODES ? 0x10001 : 1);
+    }
+    __syncthreads();
+    const unsigned tab = (unsigned)__cvta_generic_to_shared(s_tab);
+
+    const int lane = threadIdx.x % WARP;
+    const int warp = blockIdx.x * WARPS_PER_BLOCK + threadIdx.x / WARP;
+    int4* buf = bufs + (long long)warp * cols;
+    short* tt = tts + (long long)warp * cols;
+    for (;;) {
+        int b = 0;
+        if (lane == 0) b = atomicAdd(counter, 1);
+        b = __shfl_sync(FULL_MASK, b, 0);
+        if (b >= B) break;
+        const int8_t* qb = q + (long long)b * Lq;
+        const int8_t* tb = t + (long long)b * Lt;
+        const int lq = real_length(qb, Lq, lane);
+        const int lt = real_length(tb, Lt, lane);
+        // no real cell scores above 0: lane 0's row 0 holds the best
+        Best best = {0, lane, 0, 0};
+        if (lq > 0 && lt > 0) {
+            for (int x = lane; x < lt; x += WARP) {
+                __stcg(buf + x, make_int4(-go, NEG_INF, 0, 0));
+                __stcg(tt + x, (short)(clamp_code(tb[x]) * SUB_COPIES *
+                                       (int)sizeof(int2)));
+            }
+            __syncwarp();
+            const int n = strips_for(lq);
+            walk_rows<MAX_ROWS>((lq + WARP * n - 1) / (WARP * n), qb, lq, lt,
+                                n, tab, go, ge, buf, tt, lane, best);
+        }
+        // the pair's best: max of (score, -row) as one 64-bit key
+        const unsigned long long mine =
+            ((unsigned long long)(unsigned)best.v << 32) |
+            (0xFFFFFFFFu - (unsigned)best.row);
+        unsigned long long key = mine;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const unsigned long long o = __shfl_xor_sync(FULL_MASK, key, off);
+            key = o > key ? o : key;
+        }
+        if (mine == key) {
+            score[b] = (float)best.v;
+            matches[b] = best.ml >> 16;
+            length[b] = best.ml & 0xFFFF;
+            q_end[b] = best.row;
+            t_end[b] = best.j;
+        }
+    }
+}
+
+static int g_blocks_per_sm = 0, g_sms = 0;
+
+// Resident blocks per SM and SM count, asked once; a CUDA error as a
+// negative number.
+static int occupancy(void) {
+    if (g_blocks_per_sm > 0) return 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        sw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SUB_BYTES);
+    if (err != cudaSuccess) return -(int)err;
+    int dev = 0, n = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, sw_kernel, WARP * WARPS_PER_BLOCK,
+            SUB_BYTES);
+    if (err != cudaSuccess) return -(int)err;
+    if (n < 1) return -(int)cudaErrorInvalidConfiguration;
+    g_blocks_per_sm = n;
+    g_sms = sms;
+    return 0;
+}
+
+// Columns of a warp's strip buffer: P = max(lt, WARP + 1) at most.
+static int buffer_cols(int Lt) { return Lt > WARP + 1 ? Lt : WARP + 1; }
+
+static int grid_blocks(int B) {
+    const int want = (B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
+    const int most = g_blocks_per_sm * g_sms;
+    return want < most ? want : most;
 }
 
 extern "C" {
 
 int sw_max_len(void) { return MAX_LEN; }
 
+int sw_max_rows(void) { return MAX_ROWS; }
+
+// Scratch bytes of a launch: the pair counter, then per warp of the
+// grid a strip buffer and the target's table offsets, of buffer_cols(Lt)
+// columns each; a negative CUDA error if the card cannot be asked.
+long long sw_scratch_bytes(int B, int Lq, int Lt) {
+    const int err = occupancy();
+    if (err < 0) return err;
+    return SCRATCH_HEAD + (long long)grid_blocks(B) * WARPS_PER_BLOCK *
+                              buffer_cols(Lt) *
+                              (long long)(sizeof(int4) + sizeof(short));
+}
+
+// Resident blocks per SM (of WARPS_PER_BLOCK warps), or a negative CUDA
+// error.
+int sw_blocks_per_sm(void) {
+    const int err = occupancy();
+    return err < 0 ? err : g_blocks_per_sm;
+}
+
+// Registers per thread (cudaFuncGetAttributes), or a negative CUDA
+// error.
+int sw_num_regs(void) {
+    cudaFuncAttributes at;
+    cudaError_t err = cudaFuncGetAttributes(&at, sw_kernel);
+    return err == cudaSuccess ? at.numRegs : -(int)err;
+}
+
 int sw_launch(const void* q, const void* t, const void* sub, int B, int Lq,
               int Lt, int gap_open, int gap_extend, void* score,
               void* matches, void* length, void* q_end, void* t_end,
-              void* stream) {
+              void* scratch, long long scratch_bytes, void* stream) {
     if (B < 1 || Lq < 1 || Lt < 1 || Lq > MAX_LEN || Lt > MAX_LEN)
         return (int)cudaErrorInvalidValue;
-    const dim3 grid(B), block(sw_threads(Lq));
+    const long long need = sw_scratch_bytes(B, Lq, Lt);
+    if (need < 0) return (int)-need;
+    if (scratch_bytes < need) return (int)cudaErrorInvalidValue;
     cudaStream_t s = (cudaStream_t)stream;
-    const int8_t* qp = (const int8_t*)q;
-    const int8_t* tp = (const int8_t*)t;
-    const int32_t* sp = (const int32_t*)sub;
-    if (Lq <= 2048)
-        sw_kernel<4><<<grid, block, 0, s>>>(
-            qp, tp, sp, Lq, Lt, gap_open, gap_extend, (float*)score,
-            (int32_t*)matches, (int32_t*)length, (int32_t*)q_end,
-            (int32_t*)t_end);
-    else
-        sw_kernel<8><<<grid, block, 0, s>>>(
-            qp, tp, sp, Lq, Lt, gap_open, gap_extend, (float*)score,
-            (int32_t*)matches, (int32_t*)length, (int32_t*)q_end,
-            (int32_t*)t_end);
+    cudaError_t err = cudaMemsetAsync(scratch, 0, sizeof(int), s);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = grid_blocks(B), cols = buffer_cols(Lt);
+    int4* bufs = (int4*)((char*)scratch + SCRATCH_HEAD);
+    short* tts = (short*)(bufs + (long long)blocks * WARPS_PER_BLOCK * cols);
+    sw_kernel<<<blocks, WARP * WARPS_PER_BLOCK, SUB_BYTES, s>>>(
+        (const int8_t*)q, (const int8_t*)t, (const int32_t*)sub, B, Lq, Lt,
+        gap_open, gap_extend, (float*)score, (int32_t*)matches,
+        (int32_t*)length, (int32_t*)q_end, (int32_t*)t_end, (int*)scratch,
+        bufs, tts, cols);
     return (int)cudaGetLastError();
 }
 

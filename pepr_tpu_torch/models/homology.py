@@ -131,6 +131,16 @@ def batch_pairs(blq: int, blt: int, device: torch.device) -> int:
     return max(1, CPU_BATCH_CELLS // blq)
 
 
+def by_real_cells(lens: torch.Tensor, eff_q: torch.Tensor,
+                  eff_t: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """A bucket's pair indices `sel`, largest real cell count first
+    (ties in their order), on their device: the kernel's warps take a
+    launch's pairs in order, so the long pairs start first and the short
+    ones fill in behind them."""
+    cells = lens[eff_q[sel]] * lens[eff_t[sel]]
+    return sel[torch.argsort(cells, descending=True, stable=True)]
+
+
 def pack_codes(seqs, max_len: int = 4096, device=None) -> torch.Tensor:
     """All codes PAD-filled into one (N, Lmax) int8 tensor on `device`,
     Lmax the power-of-two bucket of the longest sequence."""
@@ -154,9 +164,11 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
     tensor; every batch moves only its two index vectors and gathers
     its (B, blq) and (B, blt) codes on the device.  Pairs are oriented
     short side as query and bucketed by power-of-two lengths
-    (`sw_buckets`); results stay on the device until a bucket is done
-    and cross to the host once per bucket.  Returns score, matches and
-    length per pair (float32 arrays).
+    (`sw_buckets`), and each bucket's pairs sorted by real cells before
+    it is cut into batches (`by_real_cells`); results stay on the
+    device until a bucket is done and cross to the host once per
+    bucket.  Returns score, matches and length per pair (float32
+    arrays).
     """
     dev = resolve_device(device)
     seqs = seqs_or_universe if isinstance(seqs_or_universe, list) \
@@ -172,10 +184,12 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
     eff_q, eff_t, buckets = sw_buckets(lens, pairs_q, pairs_t, max_len)
     qi_all = torch.as_tensor(eff_q, device=dev)
     ti_all = torch.as_tensor(eff_t, device=dev)
+    lens_all = torch.as_tensor(lens, device=dev)
     for (blq, blt), idxs in buckets.items():
         t0 = time.time()
         step = batch_pairs(blq, blt, dev)
-        sel_all = torch.as_tensor(idxs, device=dev)
+        sel_all = by_real_cells(lens_all, qi_all, ti_all,
+                                torch.as_tensor(idxs, device=dev))
         parts = []
         for s0 in range(0, len(idxs), step):
             sel = sel_all[s0:s0 + step]
@@ -187,8 +201,9 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
                                       res["matches"].to(torch.float32),
                                       res["length"].to(torch.float32)]))
         got = torch.cat(parts, dim=1).cpu().numpy()
+        order = sel_all.cpu().numpy()
         for row, k in enumerate(("score", "matches", "length")):
-            out[k][idxs] = got[row]
+            out[k][order] = got[row]
         log.info("sw bucket (%d,%d): %d pairs in %.2fs", blq, blt,
                  len(idxs), time.time() - t0)
     return out
