@@ -40,12 +40,12 @@ Phases, each printing one JSON line with the elapsed seconds:
            taxa absent from each family
   kernels  each kernel against its plain PyTorch version on the card,
            with times over repeated launches, at the slice shape (4
-           trees x 8,192 sites) and at the shapes the main path gives
-           the kernels: the full tree (1 x 64,433 sites), a block of
-           jackknife replicates on their compacted per-replicate codes,
-           and a batch of SPR candidates scored against the full width;
-           and a tree of 8,191 nodes (the kernels' limit) on 256 random
-           columns;
+           trees x 8,192 sites), at the shapes run_stage2_aligned gives
+           the kernels on the true alignments: the full tree (1 x 64,433
+           sites), a block of jackknife replicates on their compacted
+           per-replicate codes, and a batch of SPR candidates scored
+           against the full width; and a tree of 8,191 nodes (the
+           kernels' limit) on 256 random columns;
            at each shape the nodes in the spill tiers as planned, and the
            spill-record writes and reads the kernel made in one tile of
            each tree (per tree, each must equal the plan's spilled
@@ -54,15 +54,42 @@ Phases, each printing one JSON line with the elapsed seconds:
            bit-identical
   small    run_stage2_aligned on a small input on the card and on the
            CPU (plain path): same topology and supports
-  stage2   run_stage2_aligned at full width and the pipeline's default
-           depth (`ml` full tree, SUPPORT_REPS jackknife replicates);
-           launch counts and the wrapper's planning tally (plans made,
-           host seconds copying `children` and planning) are reset just
-           before and read just after, and the run must have made an SPR
-           sweep
-  profile  torch.profiler's device time by kernel over a second,
-           shallower stage-2 run (fast_ml, PROFILE_REPS replicates), so
-           the stage2 time above carries no profiler overhead
+  small_align  the profile-profile DP (`nw_profile_batch`) on the card
+           against the CPU on dyadic profiles (values k/4, exact in
+           float32) at the 128 and 256 buckets: identical scores and
+           pointers; release_plans gives back the plans' memory, and with
+           the plan cache's share at 0 every shape evicts the last and the
+           results stay identical; the DP step's time run eagerly,
+           captured as a CUDA graph and replayed; on the last merge wave
+           of the stage-2 input's true alignments (each family's rows
+           split in two halves) the pointers and scores that differ are
+           counted; and
+           run_stage2 on seeded 3-sequence families over 6 taxa, card
+           against CPU: identical alignments, topology and supports
+  stage2   run_stage2 at full width and the pipeline's default depth
+           (`ml` full tree, SUPPORT_REPS jackknife replicates) from the
+           405 families unaligned, each sequence with 0-3 seeded
+           deletions of 1-8 residues: filter, progressive MSA, one
+           refinement pass, Gblocks trim, then the tree stage; launch
+           counts, the MSA tally (DP calls and steps, pointer bytes,
+           host seconds in tracebacks and merges, CUDA graphs captured
+           and evicted) and the wrapper's planning tally (plans made, host
+           seconds copying `children` and planning) are reset just before
+           and read just after; the run must have made an SPR sweep and
+           released the DP's plans; then path_checks: the final tree's LL
+           by the kernel within 1e-5 of the plain path, and both kernels
+           against their plain versions at the run's own shapes (its full
+           tree over the trimmed columns, its first block of jackknife
+           replicates)
+  genomes_to_tree  the stage1 phase's homolog groups through run_stage2,
+           its config derived from the genome count as the pipeline
+           derives it (fast_ml, G2T_REPS replicates): the tree's leaves
+           must be the 11 ingroup genomes and the selected outgroup;
+           RF against the generating tree; path_checks as in stage2
+  profile  torch.profiler's device time by kernel over a shallower
+           stage-2 run from the true alignments (run_stage2_aligned,
+           fast_ml, PROFILE_REPS replicates), so the stage2 time above
+           carries no profiler overhead
 Then one JSON line with every kernel's numbers, the nvidia-smi line,
 and the result line.  Any failure ends the run with a non-zero exit;
 without a CUDA device it exits 2 and prints no result.
@@ -110,8 +137,18 @@ SUPPORT_REPS = 100  # the pipeline's default
 PROFILE_REPS = 8
 MAX_TREE_TAXA = 4096  # a rooted tree of 8,191 nodes: the kernels' limit
 MAX_TREE_SITES = 256
+# stage 2 from unaligned families: per sequence 0-3 deleted stretches of
+# 1-8 residues (the simulator makes no indels)
+DELETIONS = (0, 3)
+DELETION_LEN = (1, 8)
+ALIGN_CHECK_BATCH = 32  # profile pairs per bucket in small_align
+G2T_REPS = 8  # jackknife replicates of genomes_to_tree
+MIN_TAXA_MULTIPLIER = 0.8  # the pipeline's default (PeprConfig)
 PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
 # version (one every SCORE_BATCH / PLAIN_SPR_TREES)
+PLAIN_REP_TREES = 8  # replicates of a path's block held against the plain
+# version
+FINAL_LL_RTOL = 1e-5  # a path's final LL, kernel against the plain path
 FWD_RTOL = 1e-5  # per-site LL, elementwise (plus 1e-5 absolute)
 BWD_RTOL = 1e-4  # gradient, max |diff| over max |ref| (summation order)
 
@@ -280,6 +317,114 @@ def family_lengths(rng):
     return 100 + extra
 
 
+def deletion_keep(n: int, rng):
+    """(n,) bool: the residues of a length-n sequence left after DELETIONS
+    seeded deletions of DELETION_LEN residues each."""
+    import numpy as np
+    keep = np.ones(n, bool)
+    for _ in range(int(rng.integers(DELETIONS[0], DELETIONS[1] + 1))):
+        d = int(rng.integers(DELETION_LEN[0], DELETION_LEN[1] + 1))
+        s = int(rng.integers(0, max(n - d, 0) + 1))
+        keep[s:s + d] = False
+    return keep
+
+
+def unaligned_families(fams, rng):
+    """Simulated (name, taxa, codes) families as run_stage2's input:
+    (homolog groups, true alignments).  Each sequence loses its seeded
+    deletions, which become gaps in the true alignment; titles carry the
+    taxon in brackets, as a homolog group's FASTA titles do."""
+    import numpy as np
+    from pepr_tpu_torch.alphabet import GAP
+    from pepr_tpu_torch.io.fasta import SequenceSet
+    from pepr_tpu_torch.models.msa import Alignment
+    sets, true = [], []
+    for name, taxa, codes in fams:
+        keep = np.stack([deletion_keep(codes.shape[1], rng) for _ in taxa])
+        sets.append(SequenceSet(name, [f"{name}_{t} [{t}]" for t in taxa],
+                                [row[k] for row, k in zip(codes, keep)]))
+        true.append(Alignment(name, list(taxa),
+                              np.where(keep, codes, GAP).astype(np.int8)))
+    return sets, true
+
+
+# run_stage2 card against CPU (and, in the tests, against the JAX
+# package): 3-sequence families over 6 taxa
+SMALL_S2 = dict(min_taxa=3, full_tree_method="fast_ml", support_reps=3,
+                nni_rounds=2, seed=7)
+
+
+def three_sequence_sets(rng, n_families: int = 12):
+    """`n_families` homolog groups of 3 sequences each, drawn from 6 taxa
+    and evolved down one random tree, with seeded deletions."""
+    from pepr_tpu_torch.utils.simulate import random_tree, simulate_families
+    taxa = [f"T{i}" for i in range(6)]
+    tree = random_tree(taxa, rng, scale=0.1)
+    fams = simulate_families(tree, rng.integers(80, 160, size=n_families),
+                             rng, alpha=0.5, absent=0.5, min_taxa=3)
+    fams = [(n, t[:3], c[:3]) for n, t, c in fams]
+    return unaligned_families(fams, rng)[0]
+
+
+def dyadic_profiles(rng, B: int, L: int):
+    """(B, L, 20) float32 profiles of four draws a column (values k/4, a
+    draw of code >= 20 adds no mass, as a gap), zero past random lengths
+    in [L/2, L); and the (B,) lengths."""
+    import numpy as np
+    lens = rng.integers(L // 2, L, size=B).astype(np.int32)
+    p = np.zeros((B, L, 20), np.float32)
+    for b, n in enumerate(lens):
+        draws = rng.integers(0, 24, size=(n, 4))
+        for c in range(4):
+            hit = draws[:, c] < 20
+            np.add.at(p[b], (np.nonzero(hit)[0], draws[hit, c]), 0.25)
+    return p, lens
+
+
+def last_merge_wave(true_alns):
+    """The last merge of each family's true alignment, as one wave: each
+    family's rows split in two halves, columns all-gap in a half
+    dropped, a profile per half; {(L1, L2): (p1, l1, p2, l2)} bucketed
+    and padded as `align_families` buckets a wave."""
+    import numpy as np
+    from pepr_tpu_torch.alphabet import GAP
+    from pepr_tpu_torch.models.msa import MIN_BUCKET, _pad_profiles, _profile
+    pairs: dict = {}
+    for a in true_alns:
+        h = a.mat.shape[0] // 2
+        prof = [_profile(m[:, (m != GAP).any(axis=0)])
+                for m in (a.mat[:h], a.mat[h:])]
+        key = tuple(max(MIN_BUCKET,
+                        1 << int(np.ceil(np.log2(max(len(x), 1)))))
+                    for x in prof)
+        pairs.setdefault(key, []).append(prof)
+    return {k: (*_pad_profiles([x[0] for x in v], k[0]),
+                *_pad_profiles([x[1] for x in v], k[1]))
+            for k, v in pairs.items()}
+
+
+def genomes_to_tree_config(n_genomes: int, n_selected: int, reps: int):
+    """Stage 2's config as the pipeline derives it from the genome count
+    (`pepr_tpu/pipeline/pepr.py:140-148` with PeprConfig's defaults), at
+    the `fast_ml` method and `reps` replicates."""
+    from pepr_tpu_torch.pipeline.stage2 import Stage2Config
+    min_taxa = max(int(n_genomes * MIN_TAXA_MULTIPLIER), 3)
+    return Stage2Config(min_taxa=min_taxa, max_taxa=n_genomes + n_selected,
+                        full_tree_method="fast_ml", support_reps=reps)
+
+
+def genomes_to_tree(s1: dict, dev, reps: int = G2T_REPS) -> tuple:
+    """Stage 1's homolog groups through run_stage2: (result, the leaves
+    the tree should have, RF against the generating tree)."""
+    from pepr_tpu_torch.pipeline.stage2 import run_stage2
+    from pepr_tpu_torch.tree import rf_distance
+    cfg = genomes_to_tree_config(len(s1["ingroup"]), len(s1["selected"]),
+                                 reps)
+    res = run_stage2(s1["hg_sets"], cfg, device=dev)
+    want = sorted([g.taxon for g in s1["ingroup"]] + list(s1["selected"]))
+    return res, want, rf_distance(res.tree, s1["truth"])
+
+
 def edge_counts(children, n_leaves):
     """(internal-child edges, leaf edges) of a kernel children array."""
     kids = children[children >= 0]
@@ -432,6 +577,63 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
     return out
 
 
+def path_checks(res, reps: int, seed: int, dev) -> dict:
+    """The kernels at the shapes a run_stage2 run gave them, each against
+    its plain version (check_kernels): the run's full tree over its
+    trimmed concatenation, and the first block of its jackknife
+    replicates (its own support trees) on their compacted codes, under
+    the run's Gamma shape; and the full tree's LL by the kernel against
+    the plain path.  Called after the run's launch counts are read."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.models.support import jackknife_gene_masks
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
+                                               transition_matrices,
+                                               tree_to_arrays)
+    from pepr_tpu_torch.parallel.replicates import BLOCK_REPS, replicate_codes
+    cat = res.concat
+    model = WagModel.create(alpha=res.gamma_alpha)
+    pi = torch.as_tensor(model.pi, device=dev)
+
+    def batch(trees):
+        arrs = [tree_to_arrays(tr, cat.taxa) for tr in trees]
+        ch = torch.as_tensor(np.stack([a.children for a in arrs]),
+                             device=dev)
+        blen = torch.as_tensor(np.stack([a.blen for a in arrs]), device=dev)
+        return arrs, ch, transition_matrices(model, blen).contiguous()
+
+    arrs, ch, pm = batch([res.full_tree])
+    codes = torch.as_tensor(cat.mat, device=dev)
+    ll_kernel = loglik(cat.mat, arrs[0].children, arrs[0].blen, model,
+                       device=dev)
+    with torch.no_grad():
+        ll_plain = float(pruning.site_ll_reference(codes, ch, pm, pi)
+                         .double().sum())
+    ll_rel = abs(ll_kernel - ll_plain) / abs(ll_plain)
+    if not np.isfinite(ll_kernel) or not ll_rel <= FINAL_LL_RTOL:
+        fail(f"final log-likelihood {ll_kernel} is not finite or disagrees "
+             f"with the plain path's {ll_plain}")
+    shapes = {"full_tree": dict(
+        trees=1, sites=cat.length, codes="shared",
+        **check_kernels(codes, ch, pm, pi,
+                        torch.ones((1, cat.length), device=dev)))}
+    del codes
+    masks = jackknife_gene_masks(cat, reps, seed)
+    codes_r, w_r = replicate_codes(cat.mat, masks[:BLOCK_REPS], dev)
+    n_rep = w_r.shape[0]
+    _, ch, pm = batch(res.support_trees[:n_rep])
+    shapes["replicate_block"] = dict(
+        trees=n_rep, sites=codes_r.shape[-1],
+        codes="per-replicate" if codes_r.dim() == 3 else "shared",
+        **check_kernels(codes_r, ch, pm, pi, w_r, reps=3, plain_trees=range(
+            0, n_rep, max(1, n_rep // PLAIN_REP_TREES))))
+    del codes_r, w_r, ch, pm
+    torch.cuda.empty_cache()
+    return dict(final_ll_kernel=ll_kernel, final_ll_plain=ll_plain,
+                final_ll_rel=ll_rel, kernel_shapes=shapes)
+
+
 def device_time(prof, wall: float) -> dict:
     """Device time by kernel name from a torch.profiler run, and the
     device's busy share of the wall time."""
@@ -465,13 +667,13 @@ class _Messages(logging.Handler):
 
 
 def stage1_genomes(seed: int):
-    """The stage-1 input at the Aquificales shape: (ingroup, pool)."""
+    """The stage-1 input at the Aquificales shape: (ingroup, pool,
+    generating tree)."""
     import numpy as np
     from pepr_tpu_torch.utils.simulate import simulate_genomes
-    ingroup, pool, _ = simulate_genomes(
+    return simulate_genomes(
         np.random.default_rng(seed + 10), n_ingroup=S1_INGROUP,
         n_pool=S1_POOL, n_families=S1_FAMILIES, n_random=S1_RANDOM)
-    return ingroup, pool
 
 
 def stage1_pair_list(ingroup, dev):
@@ -535,8 +737,11 @@ def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
 
 
 def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
-    """The stage-1 path: data_stage1, sw_kernel, small_stage1 and stage1;
-    returns the SW kernel's entry of the kernels line."""
+    """The stage-1 path: data_stage1, sw_kernel, small_stage1, stage1 and
+    profile_stage1; returns the SW kernel's entry of the kernels line
+    (`entry`) and what genomes_to_tree takes on: the stage1 phase's
+    homolog groups and selected outgroups, the ingroup genomes and the
+    generating tree."""
     import numpy as np
     import torch
 
@@ -551,7 +756,7 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
 
     # -- data_stage1
     t = time.time()
-    ingroup, pool = stage1_genomes(seed)
+    ingroup, pool, truth = stage1_genomes(seed)
     lens = np.concatenate([g.lengths() for g in ingroup])
     phase("data_stage1", seconds=round(time.time() - t, 3),
           ingroup_genomes=len(ingroup), pool_genomes=len(pool),
@@ -728,7 +933,8 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
         run_stage1(ingroup, pool, cfg, device="cuda")
         torch.cuda.synchronize()
     phase("profile_stage1", **device_time(prof, time.time() - t))
-    return entry
+    return dict(entry=entry, hg_sets=res.hg_sets,
+                selected=res.selected_outgroups, ingroup=ingroup, truth=truth)
 
 
 def main(argv=None) -> int:
@@ -745,16 +951,20 @@ def main(argv=None) -> int:
 
     from pepr_tpu_torch.device import resolve_device
     from pepr_tpu_torch.models.concat import concatenate
-    from pepr_tpu_torch.models.msa import Alignment
+    from pepr_tpu_torch.models.msa import (ALIGN, Alignment,
+                                           reset_align_counts)
     from pepr_tpu_torch.models.support import jackknife_gene_masks
     from pepr_tpu_torch.models.treebuild import (SCORE_BATCH, _postorder_fix,
                                                  _remap_blen, _spr_candidates)
-    from pepr_tpu_torch.ops import _cuda, pruning, sw
-    from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
-                                               transition_matrices,
+    from pepr_tpu_torch.ops import _cuda, profile_align, pruning, sw
+    from pepr_tpu_torch.ops.likelihood import (WagModel, transition_matrices,
                                                tree_to_arrays)
+    from pepr_tpu_torch.ops.profile_align import (GRAPHS, _Plan,
+                                                  nw_profile_batch,
+                                                  release_plans,
+                                                  reset_graph_counts)
     from pepr_tpu_torch.parallel.replicates import BLOCK_REPS, replicate_codes
-    from pepr_tpu_torch.pipeline.stage2 import (Stage2Config,
+    from pepr_tpu_torch.pipeline.stage2 import (Stage2Config, run_stage2,
                                                 run_stage2_aligned)
     from pepr_tpu_torch.tree import rf_distance
     from pepr_tpu_torch.tree.bipartition import bipartitions, taxon_index
@@ -785,7 +995,7 @@ def main(argv=None) -> int:
             if "entry function" in ln or "registers" in ln or "spill" in ln]
         for n, lg in logs.items()})
 
-    sw_entry = stage1_phases(args.seed, dev, sm_clock)
+    s1 = stage1_phases(args.seed, dev, sm_clock)
 
     # -- data
     rng = np.random.default_rng(args.seed)
@@ -795,12 +1005,22 @@ def main(argv=None) -> int:
                              absent=0.1)
     alignments = [Alignment(n, t_, c) for n, t_, c in fams]
     cat = concatenate(alignments, taxa)
-    phase("data", taxa=N_TAXA, families=len(alignments), columns=cat.length)
+    # the same families unaligned, for run_stage2 (deletions from their
+    # own generator, so the kernels' inputs stay as they were)
+    sets, true_gapped = unaligned_families(
+        fams, np.random.default_rng(args.seed + 2))
+    residues = sum(int(x.total_residues()) for x in sets)
+    phase("data", taxa=N_TAXA, families=len(alignments), columns=cat.length,
+          unaligned_residues=residues,
+          deleted_residues=int(sum(c.size for _, _, c in fams)) - residues)
     if cat.length != N_COLUMNS:
         fail(f"dataset has {cat.length} columns, expected {N_COLUMNS}")
 
-    # -- kernels: each against its plain version, at the slice shape and
-    # at the shapes the main path gives them
+    # -- kernels: each against its plain version at the slice shape, at
+    # the shapes run_stage2_aligned gives them on the true alignments
+    # (kept so the numbers stay comparable across PRs), and at the largest
+    # tree; the stage2 and genomes_to_tree phases check them again at the
+    # shapes their own runs give them (path_checks)
     model = WagModel.create(alpha=0.5)
     pi = torch.as_tensor(model.pi, device=dev)
 
@@ -901,7 +1121,103 @@ def main(argv=None) -> int:
     if s_rf != 0 or s_sup != c_sup or not s_rel <= 1e-4:
         fail("small stage-2 run on the card disagrees with the CPU's")
 
-    # -- stage2 at full width and default depth
+    # -- small_align: the profile-profile DP on the card against the CPU
+    t = time.time()
+    arng = np.random.default_rng(args.seed + 3)
+
+    def both(p1, l1, p2, l2):
+        host = [torch.as_tensor(x) for x in (p1, p2, l1, l2)]
+        s_c, p_c = nw_profile_batch(*host)
+        s_g, p_g = nw_profile_batch(*(x.to(dev) for x in host))
+        return s_c, p_c, s_g.cpu(), p_g.cpu()
+
+    dyadic, dy_inputs = [], []
+    for L1, L2 in ((128, 128), (128, 256), (256, 256)):
+        dy_inputs.append((*dyadic_profiles(arng, ALIGN_CHECK_BATCH, L1),
+                          *dyadic_profiles(arng, ALIGN_CHECK_BATCH, L2)))
+        s_c, p_c, s_g, p_g = both(*dy_inputs[-1])
+        same = torch.equal(s_g, s_c) and torch.equal(p_g, p_c)
+        dyadic.append([L1, L2, ALIGN_CHECK_BATCH, same])
+        if not same:
+            fail(f"nw_profile_batch on the card disagrees with the CPU on "
+                 f"dyadic profiles at ({L1}, {L2})")
+    # the plan cache: release_plans gives back the memory its plans'
+    # buffers hold; then, with the cache's share at 0, every new shape
+    # evicts the cached plan (while its call may still be queued) and is
+    # captured again when it returns, with results still identical
+    cached = list(profile_align._PLANS.values())
+    cache = dict(plans=len(cached),
+                 buffer_bytes=sum(p.nbytes - p.pool_bytes for p in cached),
+                 graph_pool_bytes=sum(p.pool_bytes for p in cached))
+    del cached
+    allocated = torch.cuda.memory_allocated(dev)
+    release_plans()
+    cache["freed_bytes"] = allocated - torch.cuda.memory_allocated(dev)
+    if profile_align._PLANS or cache["freed_bytes"] < cache["buffer_bytes"]:
+        fail(f"release_plans did not give back the plans' memory: {cache}")
+    share = profile_align.PLAN_CACHE_SHARE
+    profile_align.PLAN_CACHE_SHARE = 0.0
+    reset_graph_counts()
+    try:
+        for _ in range(2):
+            for arrs in dy_inputs:
+                s_c, p_c, s_g, p_g = both(*arrs)
+                if not (torch.equal(s_g, s_c) and torch.equal(p_g, p_c)):
+                    fail("nw_profile_batch disagrees with the CPU when its "
+                         "plans are evicted between calls")
+    finally:
+        profile_align.PLAN_CACHE_SHARE = share
+    cache.update(evicting_run=dict(GRAPHS))
+    if GRAPHS["evicted"] != 2 * len(dy_inputs) - 1:
+        fail(f"the plan cache evicted {GRAPHS['evicted']} plans, expected "
+             f"{2 * len(dy_inputs) - 1}")
+    release_plans()
+    # the step loop at (ALIGN_CHECK_BATCH, 256, 256): an eager run, its
+    # capture as a CUDA graph and a replay, each per DP step
+    plan = _Plan(ALIGN_CHECK_BATCH, 256, 256, dev)
+    plan.steps()  # warm-up
+    step_ms = {}
+    for what, fn in (("eager", plan.steps), ("capture", plan.capture),
+                     ("replay", lambda: plan.graph.replay())):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        step_ms[what] = 1e3 * (time.time() - t0) / plan.D
+    del plan
+    wave = []
+    for (L1, L2), arrs in sorted(last_merge_wave(true_gapped).items()):
+        s_c, p_c, s_g, p_g = both(*arrs)
+        wave.append([L1, L2, len(s_c), int((p_g != p_c).sum()), p_c.numel(),
+                     int((s_g != s_c).sum()),
+                     float((s_g - s_c).abs().max())])
+    small_sets = three_sequence_sets(np.random.default_rng(args.seed + 4))
+    on_gpu = run_stage2(small_sets, Stage2Config(**SMALL_S2), device="cuda")
+    on_cpu = run_stage2(small_sets, Stage2Config(**SMALL_S2), device="cpu")
+    same_aln = len(on_gpu.alignments) == len(on_cpu.alignments) and all(
+        np.array_equal(a.mat, b.mat)
+        for a, b in zip(on_gpu.alignments, on_cpu.alignments))
+    a_rf = rf_distance(on_gpu.tree, on_cpu.tree)
+    a_sup = [sorted(v for v in r.tree.support if v == v)
+             for r in (on_gpu, on_cpu)]
+    a_rel = abs(on_gpu.log_likelihood - on_cpu.log_likelihood) \
+        / abs(on_cpu.log_likelihood)
+    phase("small_align", seconds=round(time.time() - t, 3),
+          dyadic=dict(columns=["L1", "L2", "pairs", "identical"],
+                      rows=dyadic),
+          step_ms_at_256=step_ms, plan_cache=cache,
+          last_wave=dict(columns=["L1", "L2", "pairs", "pointers_differ",
+                                  "pointers", "scores_differ",
+                                  "score_max_abs_diff"], rows=wave),
+          stage2_families=len(small_sets),
+          identical_alignments=same_aln, rf_gpu_vs_cpu=a_rf,
+          ll_gpu=on_gpu.log_likelihood, ll_cpu=on_cpu.log_likelihood,
+          ll_rel=a_rel, supports_gpu=a_sup[0], supports_cpu=a_sup[1])
+    if not same_aln or a_rf != 0 or a_sup[0] != a_sup[1] \
+            or not a_rel <= 1e-4:
+        fail("small run_stage2 on the card disagrees with the CPU's")
+
+    # -- stage2 at full width and default depth, from unaligned families
     cfg = Stage2Config(full_tree_method="ml", support_reps=SUPPORT_REPS)
     phase("stage2_start", config=dict(
         full_tree_method="ml", nni_rounds=cfg.nni_rounds,
@@ -913,41 +1229,35 @@ def main(argv=None) -> int:
     port_log.addHandler(msgs)
     torch.cuda.synchronize()
     pruning.reset_launch_counts()
+    reset_align_counts()
+    reset_graph_counts()
     t = time.time()
-    res = run_stage2_aligned(alignments, cfg, device="cuda")
+    res = run_stage2(sets, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = dict(pruning.LAUNCHES)
     planning = dict(pruning.PLANNING)
+    align = dict(ALIGN, **GRAPHS)
     port_log.removeHandler(msgs)
     search = [m for m in msgs.lines if m.startswith(("ml_tree", "support"))]
     spr_sweeps = [m for m in search if m.startswith("ml_tree: SPR sweep")]
     rf = rf_distance(res.full_tree, truth)
     sup = [v for v in res.tree.support if v == v]
-    # the final tree's LL by the kernel and by the plain path
-    arr = tree_to_arrays(res.full_tree, res.concat.taxa)
-    final = WagModel.create(alpha=res.gamma_alpha)
-    ll_kernel = loglik(res.concat.mat, arr.children, arr.blen, final,
-                       device="cuda")
-    with torch.no_grad():
-        ll_plain = float(pruning.site_ll_reference(
-            torch.as_tensor(res.concat.mat, device=dev),
-            torch.as_tensor(arr.children[None], device=dev),
-            transition_matrices(final, torch.as_tensor(
-                arr.blen[None], device=dev)),
-            torch.as_tensor(final.pi, device=dev)).double().sum())
-    ll_rel = abs(ll_kernel - ll_plain) / abs(ll_plain)
+    plans_left = len(profile_align._PLANS)
+    checks = path_checks(res, SUPPORT_REPS, cfg.seed, dev)
     phase("stage2", seconds=round(wall, 3), timings=res.timings,
+          align=align, families_in=len(sets),
+          families_kept=res.concat.n_genes, trimmed_columns=res.concat.length,
           gamma_alpha=res.gamma_alpha, log_likelihood=res.log_likelihood,
-          final_ll_kernel=ll_kernel, final_ll_plain=ll_plain,
-          final_ll_rel=ll_rel, rf_vs_generating_tree=rf,
+          plans_left_after_align=plans_left, rf_vs_generating_tree=rf,
           n_internal_edges=len(bipartitions(res.full_tree,
                                             taxon_index(taxa))),
           supports=sup, launches=launches, planning=planning,
-          search=search)
-    if not np.isfinite(res.log_likelihood) or not ll_rel <= 1e-5:
-        fail("final log-likelihood is not finite or disagrees with the "
-             "plain path")
+          search=search, **checks)
+    if not np.isfinite(res.log_likelihood):
+        fail("the log-likelihood is not finite")
+    if plans_left:
+        fail(f"run_stage2 left {plans_left} DP plans cached after alignment")
     if sorted(res.full_tree.leaf_labels()) != sorted(taxa):
         fail("full tree does not have the dataset's taxa")
     if rf > N_TAXA - 3:
@@ -959,6 +1269,43 @@ def main(argv=None) -> int:
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
+
+    # -- genomes_to_tree: stage 1's homolog groups through run_stage2
+    del res
+    torch.cuda.synchronize()
+    pruning.reset_launch_counts()
+    reset_align_counts()
+    reset_graph_counts()
+    t = time.time()
+    g_res, g_want, g_rf = genomes_to_tree(s1, "cuda")
+    torch.cuda.synchronize()
+    g_wall = time.time() - t
+    g_launches = dict(pruning.LAUNCHES)
+    g_align = dict(ALIGN, **GRAPHS)
+    g_cfg = genomes_to_tree_config(len(s1["ingroup"]), len(s1["selected"]),
+                                   G2T_REPS)
+    g_sup = [v for v in g_res.tree.support if v == v]
+    g_checks = path_checks(g_res, g_cfg.support_reps, g_cfg.seed, dev)
+    phase("genomes_to_tree", seconds=round(g_wall, 3),
+          timings=g_res.timings, align=g_align,
+          config=dict(min_taxa=g_cfg.min_taxa, max_taxa=g_cfg.max_taxa,
+                      full_tree_method=g_cfg.full_tree_method,
+                      support_reps=g_cfg.support_reps),
+          groups_in=len(s1["hg_sets"]), families_kept=g_res.concat.n_genes,
+          trimmed_columns=g_res.concat.length,
+          leaves=sorted(g_res.tree.leaf_labels()),
+          log_likelihood=g_res.log_likelihood, gamma_alpha=g_res.gamma_alpha,
+          rf_vs_generating_tree=g_rf, supports=g_sup, launches=g_launches,
+          **g_checks)
+    if sorted(g_res.tree.leaf_labels()) != g_want:
+        fail(f"genomes_to_tree: the tree's leaves are not the {len(g_want)} "
+             f"genomes {g_want}")
+    if not np.isfinite(g_res.log_likelihood):
+        fail("genomes_to_tree: the log-likelihood is not finite")
+    for k, n in g_launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the genomes_to_tree path")
+    del g_res
 
     # -- profile: device time by kernel over a shallower stage-2 run
     from torch.profiler import ProfilerActivity, profile
@@ -974,9 +1321,12 @@ def main(argv=None) -> int:
 
     # the kernels' numbers at the full tree's shape; errors are the
     # largest over every shape checked
+    every = list(shapes.values()) + [
+        v for c in (checks, g_checks) for v in c["kernel_shapes"].values()]
+
     def entry(k):
         at = shapes["full_tree"][k]
-        errs = [v[k] for v in shapes.values() if k in v]
+        errs = [v[k] for v in every if k in v]
         return dict(
             max_abs_err=max(e["max_abs_err"] for e in errs),
             max_rel_err=max(e["max_rel_err"] for e in errs), tol=at["tol"],
@@ -994,7 +1344,7 @@ def main(argv=None) -> int:
     kernels.append(dict(name="sw", route="cuda",
                         source="pepr_tpu_torch/csrc/sw.cu",
                         replaces="pepr_tpu/ops/pallas_sw.py:64",
-                        **sw_entry, library_ms=None))
+                        **s1["entry"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
