@@ -1,5 +1,6 @@
-"""Drive the port's stage-1 and stage-2 paths once on one NVIDIA H100
-and check them.
+"""Drive the port's paths once on one NVIDIA H100 and check them: stage
+1 with and without the HMM enhancer, stage 2, and run_pepr, the
+reference's default run from genomes to its output files.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -35,6 +36,23 @@ Phases, each printing one JSON line with the elapsed seconds:
            families in >= 2 ingroup genomes recovered as clean groups
   profile_stage1  torch.profiler's device time by kernel over a second
            full stage-1 run, so the stage1 time carries no profiler
+  small_hmm  run_stage1(use_hmm=True) on a small input on the card and on
+           the CPU: identical groups and selected outgroups
+  stage1_hmm  run_stage1(use_hmm=True, outgroup_count=2) at the
+           Aquificales shape on the pepr_genomes input (a planted clade,
+           below); the SW and HMM launch counts are reset just before and
+           read just after; the pool genome must be selected; the
+           enhancer's prefilter pairs, scored pairs by bucket, padded and
+           real DP cells and its sub-phase seconds (alignment, prefilter,
+           scoring) are printed
+  hmm_kernel  the HMM kernel against its plain PyTorch version on the
+           stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a (lpad,
+           mpad) bucket, Forward and Viterbi, within HMM_ATOL + HMM_RTOL;
+           the same batch permuted and with each pair twice must give
+           bit-identical scores; every bucket at the main path's
+           launches, timed, beside its bound (per_bucket); one launch at
+           the path's batch size for the bucket with the most padded
+           cells, timed beside its bound and the plain version's time
   data     the seeded 53-taxon dataset: 405 WAG+Gamma(0.5) families of
            100-250 columns, 64,433 concatenated columns, ~10% of the
            taxa absent from each family
@@ -66,9 +84,9 @@ Phases, each printing one JSON line with the elapsed seconds:
            counted; and
            run_stage2 on seeded 3-sequence families over 6 taxa, card
            against CPU: identical alignments, topology and supports
-  stage2   run_stage2 at full width and the pipeline's default depth
-           (`ml` full tree, SUPPORT_REPS jackknife replicates) from the
-           405 families unaligned, each sequence with 0-3 seeded
+  stage2   run_stage2 at full width, the `ml` full tree and STAGE2_REPS
+           jackknife replicates (cut from the default 100 for time)
+           from the 405 families unaligned, each sequence with 0-3 seeded
            deletions of 1-8 residues: filter, progressive MSA, one
            refinement pass, Gblocks trim, then the tree stage; launch
            counts, the MSA tally (DP calls and steps, pointer bytes,
@@ -81,18 +99,25 @@ Phases, each printing one JSON line with the elapsed seconds:
            against their plain versions at the run's own shapes (its full
            tree over the trimmed columns, its first block of jackknife
            replicates)
-  genomes_to_tree  the stage1 phase's homolog groups through run_stage2,
-           its config derived from the genome count as the pipeline
-           derives it (fast_ml, G2T_REPS replicates): the tree's leaves
-           must be the 11 ingroup genomes and the selected outgroup;
-           RF against the generating tree; path_checks as in stage2
+  pepr     run_pepr with PeprConfig.default_track() (ml full tree,
+           PEPR_REPS replicates, refinement) on the pepr_genomes input,
+           files written to a temporary directory; every launch count is
+           reset just before and read just after, and every kernel must
+           have been launched; at least one refinement round, the six
+           output files and the genomes as the tree's leaves are
+           required; wall split into stage 1, stage 2, refinement and
+           writing; then path_checks on its stage-2 result, as in
+           stage2 (stage 1's groups to a tree over the 12 genomes; the
+           full tree's gradient also against a float64 plain gradient,
+           both float32 sides' errors printed)
   profile  torch.profiler's device time by kernel over a shallower
            stage-2 run from the true alignments (run_stage2_aligned,
            fast_ml, PROFILE_REPS replicates), so the stage2 time above
            carries no profiler overhead
-Then one JSON line with every kernel's numbers, the nvidia-smi line,
-and the result line.  Any failure ends the run with a non-zero exit;
-without a CUDA device it exits 2 and prints no result.
+Then one JSON line with every kernel's numbers (launches from the pepr
+run), the nvidia-smi line, and the result line.  Any failure ends the
+run with a non-zero exit; without a CUDA device it exits 2 and prints no
+result.
 """
 
 from __future__ import annotations
@@ -100,6 +125,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
@@ -133,7 +159,11 @@ N_FAMILIES = 405
 N_COLUMNS = 64433
 KERNEL_SITES = 8192
 KERNEL_TREES = 4
-SUPPORT_REPS = 100  # the pipeline's default
+SUPPORT_REPS = 100  # the pipeline's default (the kernels phase's block)
+# the stage2 phase's replicates: cut from the default 100 to keep the
+# script within its 600 s once the pepr phase came (100 took 605.5 s
+# on one run)
+STAGE2_REPS = 50
 PROFILE_REPS = 8
 MAX_TREE_TAXA = 4096  # a rooted tree of 8,191 nodes: the kernels' limit
 MAX_TREE_SITES = 256
@@ -142,8 +172,6 @@ MAX_TREE_SITES = 256
 DELETIONS = (0, 3)
 DELETION_LEN = (1, 8)
 ALIGN_CHECK_BATCH = 32  # profile pairs per bucket in small_align
-G2T_REPS = 8  # jackknife replicates of genomes_to_tree
-MIN_TAXA_MULTIPLIER = 0.8  # the pipeline's default (PeprConfig)
 PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
 # version (one every SCORE_BATCH / PLAIN_SPR_TREES)
 PLAIN_REP_TREES = 8  # replicates of a path's block held against the plain
@@ -151,6 +179,33 @@ PLAIN_REP_TREES = 8  # replicates of a path's block held against the plain
 FINAL_LL_RTOL = 1e-5  # a path's final LL, kernel against the plain path
 FWD_RTOL = 1e-5  # per-site LL, elementwise (plus 1e-5 absolute)
 BWD_RTOL = 1e-4  # gradient, max |diff| over max |ref| (summation order)
+
+# the HMM kernel: special-function (MUFU) operations of one real DP cell
+# of Plan7 Forward (the function, not this kernel's extra work): five
+# logaddexp2s (three for the match state, one for the insert, one for
+# the delete state), each an exp2 and a log, and one exp2 for the total;
+# the kernel's lane-parallel delete chain adds a sixth (composing the
+# chain's maps), which is not counted; the card's rate is
+# MUFU_PER_SM_CLOCK results a clock on each of SMS SMs at the SM clock
+HMM_MUFU_PER_CELL = 11
+SMS = 132
+MUFU_PER_SM_CLOCK = 16
+HMM_FLOATS_PER_COLUMN = 27  # a profile column: 20 emissions, 7 transitions
+HMM_CHECK_PAIRS = 512  # pairs per bucket held against the plain version
+# kernel against plain, bits: sums in another order (per-lane online
+# log-sum-exp2 against per-row sums, a lane-blocked delete chain against
+# the Kogge-Stone doubling), over up to 4,096 x 4,096 cells
+HMM_ATOL = 1e-3
+HMM_RTOL = 1e-5
+# small_hmm: proteins under 128 residues score below the pipeline's 144
+# bits (the reference's -E 1e-40 at ~3k-protein genomes)
+SMALL_HMM_MIN_BITS = 40.0
+# pepr: the internal branches of the planted clade (pepr_genomes)
+PEPR_CLADE_BRANCH = 2e-5
+PEPR_REPS = 100  # the default track's replicates
+PEPR_CUTS: list[str] = []  # depth cut from the default track (none)
+PEPR_FILES = (".nwk", "_final_rooted.nwk", "_final_rooted.json", ".sup",
+              ".hs", ".clp", ".report.xml")
 
 
 def phase(label: str, **info) -> None:
@@ -403,28 +458,6 @@ def last_merge_wave(true_alns):
             for k, v in pairs.items()}
 
 
-def genomes_to_tree_config(n_genomes: int, n_selected: int, reps: int):
-    """Stage 2's config as the pipeline derives it from the genome count
-    (`pepr_tpu/pipeline/pepr.py:140-148` with PeprConfig's defaults), at
-    the `fast_ml` method and `reps` replicates."""
-    from pepr_tpu_torch.pipeline.stage2 import Stage2Config
-    min_taxa = max(int(n_genomes * MIN_TAXA_MULTIPLIER), 3)
-    return Stage2Config(min_taxa=min_taxa, max_taxa=n_genomes + n_selected,
-                        full_tree_method="fast_ml", support_reps=reps)
-
-
-def genomes_to_tree(s1: dict, dev, reps: int = G2T_REPS) -> tuple:
-    """Stage 1's homolog groups through run_stage2: (result, the leaves
-    the tree should have, RF against the generating tree)."""
-    from pepr_tpu_torch.pipeline.stage2 import run_stage2
-    from pepr_tpu_torch.tree import rf_distance
-    cfg = genomes_to_tree_config(len(s1["ingroup"]), len(s1["selected"]),
-                                 reps)
-    res = run_stage2(s1["hg_sets"], cfg, device=dev)
-    want = sorted([g.taxon for g in s1["ingroup"]] + list(s1["selected"]))
-    return res, want, rf_distance(res.tree, s1["truth"])
-
-
 def edge_counts(children, n_leaves):
     """(internal-child edges, leaf edges) of a kernel children array."""
     kids = children[children >= 0]
@@ -501,12 +534,15 @@ def launch_facts(kernel: str) -> dict:
 
 
 def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
-                  reps=5):
+                  reps=5, wide=False):
     """Both wrappers (the gradient only if `grad`) against their plain
     versions on the same card tensors, tree by tree for the plain side
     (`plain_trees`: the trees held against it, default all); returns
     {kernel: numbers} and fails the run beyond tolerance, on spill counts
-    that disagree, or on two gradient launches that differ in any bit."""
+    that disagree, or on two gradient launches that differ in any bit.
+    With `wide`, the plain gradient is also computed in float64 on the
+    card and both float32 sides' max-normalised errors against it are
+    reported (`float64_check`)."""
     import torch
     from pepr_tpu_torch.ops import pruning
 
@@ -531,6 +567,24 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
                 r_max = max(r_max, float(g_r.abs().max()))
                 del g_r
             return d_max, r_max
+
+    def float64_errors(g_k):
+        """Max |float32 - float64| over max |float64| of the kernel and
+        of the plain float32 gradient, tree by tree."""
+        err_k = err_p = ref = 0.0
+        with torch.no_grad():
+            for b in trees:
+                g_w = pruning.site_ll_grad_reference(
+                    one(b), ch[b:b + 1], pm[b:b + 1].double(), pi.double(),
+                    ct[b:b + 1].double())[0]
+                g_r = pruning.site_ll_grad_reference(
+                    one(b), ch[b:b + 1], pm[b:b + 1], pi, ct[b:b + 1])[0]
+                err_k = max(err_k, float((g_k[b].double() - g_w).abs().max()))
+                err_p = max(err_p, float((g_r.double() - g_w).abs().max()))
+                ref = max(ref, float(g_w.abs().max()))
+                del g_w, g_r
+        return dict(kernel_vs_float64=err_k / ref,
+                    plain_float32_vs_float64=err_p / ref, tol=BWD_RTOL)
 
     bounds = kernel_bounds(B, codes.shape[-2], n_int, L, pm.shape[1],
                            ch[0].cpu().numpy(), codes.numel())
@@ -564,6 +618,8 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
                        reps),
             plain_ms=plain_ms, plain_trees=len(trees),
             bit_identical_relaunch=same, **facts)
+        if wide:
+            out["pruning_bwd"]["float64_check"] = float64_errors(g_k)
         ok = bool(torch.isfinite(g_k).all()) and d_max / r_max <= BWD_RTOL
         del g_k
         if not ok:
@@ -617,7 +673,7 @@ def path_checks(res, reps: int, seed: int, dev) -> dict:
     shapes = {"full_tree": dict(
         trees=1, sites=cat.length, codes="shared",
         **check_kernels(codes, ch, pm, pi,
-                        torch.ones((1, cat.length), device=dev)))}
+                        torch.ones((1, cat.length), device=dev), wide=True))}
     del codes
     masks = jackknife_gene_masks(cat, reps, seed)
     codes_r, w_r = replicate_codes(cat.mat, masks[:BLOCK_REPS], dev)
@@ -738,10 +794,7 @@ def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
 
 def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     """The stage-1 path: data_stage1, sw_kernel, small_stage1, stage1 and
-    profile_stage1; returns the SW kernel's entry of the kernels line
-    (`entry`) and what genomes_to_tree takes on: the stage1 phase's
-    homolog groups and selected outgroups, the ingroup genomes and the
-    generating tree."""
+    profile_stage1; returns the SW kernel's entry of the kernels line."""
     import numpy as np
     import torch
 
@@ -756,7 +809,7 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
 
     # -- data_stage1
     t = time.time()
-    ingroup, pool, truth = stage1_genomes(seed)
+    ingroup, pool, _ = stage1_genomes(seed)
     lens = np.concatenate([g.lengths() for g in ingroup])
     phase("data_stage1", seconds=round(time.time() - t, 3),
           ingroup_genomes=len(ingroup), pool_genomes=len(pool),
@@ -933,8 +986,363 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
         run_stage1(ingroup, pool, cfg, device="cuda")
         torch.cuda.synchronize()
     phase("profile_stage1", **device_time(prof, time.time() - t))
-    return dict(entry=entry, hg_sets=res.hg_sets,
-                selected=res.selected_outgroups, ingroup=ingroup, truth=truth)
+    return entry
+
+
+# -- the HMM enhancement (stage 1 with use_hmm=True) and run_pepr
+
+def pepr_genomes(seed: int):
+    """The Aquificales-shape input of stage1_hmm and pepr: (ingroup,
+    pool, generating tree).  As stage1_genomes, but the ingroup tree is
+    ((CLADE, (4, 5)), ((6, 7), (8, (9, 10)))) over the genomes 00-10,
+    CLADE = ((0, 1), (2, 3)) with internal branches PEPR_CLADE_BRANCH
+    long, every other branch 0.01 + Exp(0.06): the clade's supports
+    fall below 100 and its stem's do not, so run_pepr refines the clade
+    once, as the reference's own example refines one
+    (conformance/run_aqu.py:3-5); every other node has only internal,
+    well-supported children (PhylogeneticTreeRefiner's rule) and is
+    no candidate."""
+    import numpy as np
+    from pepr_tpu_torch.tree import parse_newick
+    from pepr_tpu_torch.utils.simulate import simulate_genomes
+    rng = np.random.default_rng(seed + 20)
+    g = [f"Synthica_spec{i:02d}_strain_X" for i in range(S1_INGROUP)]
+
+    def bl() -> str:
+        return f"{rng.exponential(0.06) + 0.01:.4f}"
+
+    def pair(x, y):
+        return f"({x}:{bl()},{y}:{bl()})"
+
+    b = PEPR_CLADE_BRANCH
+    clade = (f"(({g[0]}:{bl()},{g[1]}:{bl()}):{b},"
+             f"({g[2]}:{bl()},{g[3]}:{bl()}):{b})")
+    left = f"({clade}:{bl()},{pair(g[4], g[5])}:{bl()})"
+    right = (f"({pair(g[6], g[7])}:{bl()},({g[8]}:{bl()},"
+             f"{pair(g[9], g[10])}:{bl()}):{bl()})")
+    tree = parse_newick(f"({left},{right});")
+    return simulate_genomes(rng, n_ingroup=S1_INGROUP, n_pool=S1_POOL,
+                            n_families=S1_FAMILIES, n_random=S1_RANDOM,
+                            ingroup_tree=tree)
+
+
+class ScorerRecord:
+    """Records the (sequences, profiles, pairs) of every
+    `profile_score_pairs` call the enhancer makes while it is entered;
+    the real function still runs."""
+
+    def __enter__(self):
+        from pepr_tpu_torch.models import hmm_enhancer
+        self.module, self.orig = hmm_enhancer, hmm_enhancer.profile_score_pairs
+        self.calls = []
+
+        def record(seqs, hmms, pairs, **kw):
+            self.calls.append((seqs, hmms, pairs))
+            return self.orig(seqs, hmms, pairs, **kw)
+
+        hmm_enhancer.profile_score_pairs = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.profile_score_pairs = self.orig
+
+
+def hmm_bound(real_cells: int, n_bytes: int, sm_clock_mhz: float):
+    """Least time (ms) for Forward scoring: its special-function
+    operations (HMM_MUFU_PER_CELL a real cell) over the card's rate
+    (MUFU_PER_SM_CLOCK a clock on each of SMS SMs), or its bytes over
+    HBM bandwidth; returns (ms, bound_by)."""
+    t_ops = real_cells * HMM_MUFU_PER_CELL / (
+        SMS * MUFU_PER_SM_CLOCK * sm_clock_mhz * 1e6)
+    t_bytes = n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def hmm_packs(call, dev) -> dict:
+    """The device packs of a recorded scorer call (`call`: sequences,
+    profiles, pairs) and its launches, from the scorer's own planner
+    (`ops/hmm.score_plan`, `device_pack`): the sequence pack, and per
+    mpad its profile pack, the pack's lengths and its buckets."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops import hmm
+    seqs, hmms, pairs = call
+    codes_np, lens_np = hmm.pack_sequences(seqs)
+    hmm_lens = np.array([h.length for h in hmms], np.int64)
+    packs = {}
+    for mpad, members, buckets in hmm.score_plan(lens_np, hmm_lens, pairs):
+        pack, m_lens = hmm.device_pack([hmms[i] for i in members], mpad, dev)
+        packs[mpad] = (pack, m_lens, buckets)
+    return dict(codes=torch.as_tensor(codes_np, device=dev),
+                lens=torch.as_tensor(lens_np, device=dev), lens_np=lens_np,
+                packs=packs)
+
+
+def hmm_launch(p: dict, b, sel, dev) -> tuple:
+    """The kernel's arguments for the pairs `sel` of bucket `b`, their
+    real DP cells, and the bytes the launch must move (the pairs' codes,
+    the distinct profiles' emissions and transitions, the index vectors
+    and the scores)."""
+    import numpy as np
+    import torch
+    pack, m_lens, _ = p["packs"][b.mpad]
+    si, hi = b.seq_idx[sel], b.hmm_idx[sel]
+    args = (p["codes"], p["lens"], *pack, torch.as_tensor(si, device=dev),
+            torch.as_tensor(hi, device=dev), b.lpad)
+    uniq = np.unique(hi)
+    n_bytes = int(np.minimum(p["lens_np"][si], b.lpad).sum()) + 4 * int((
+        HMM_FLOATS_PER_COLUMN * np.minimum(m_lens[uniq], b.mpad)).sum()) \
+        + 12 * len(si)
+    return args, b.real_cells(p["lens_np"], m_lens, sel), n_bytes
+
+
+def hmm_bucket_table(p: dict, dev, sm_clock_mhz: float) -> list:
+    """Every bucket at the main path's launches (its `launches()`), each
+    launch timed once: per bucket [lpad, mpad, pairs, launches, real
+    cells, padded cells, ms, bound ms, bound share]."""
+    from pepr_tpu_torch.ops import hmm_kernel
+    rows = []
+    for mpad, (_, _, buckets) in sorted(p["packs"].items()):
+        for b in buckets:
+            ms = real = nb = 0
+            for sel in b.launches():
+                a, r, n = hmm_launch(p, b, sel, dev)
+                ms += time_ms(lambda: hmm_kernel.hmm_score(*a, True), reps=1,
+                              warmup=0)
+                real, nb = real + r, nb + n
+            bound_ms, _ = hmm_bound(real, nb, sm_clock_mhz)
+            rows.append([b.lpad, mpad, len(b.pairs), len(b.launches()), real,
+                         len(b.pairs) * b.lpad * mpad, round(ms, 4),
+                         round(bound_ms, 4), round(bound_ms / ms, 4)])
+    return rows
+
+
+def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
+    """The HMM kernel against its plain version on the pairs of a
+    stage1_hmm run (`call`: the recorded scorer inputs), bucket by
+    bucket: up to HMM_CHECK_PAIRS real pairs, Forward and Viterbi,
+    within HMM_ATOL + HMM_RTOL |plain|; the same batch permuted, and
+    with each pair twice, bit-identical; every bucket's launches as the
+    main path cuts them, timed, beside the bound; then one launch at the
+    path's batch size for the bucket with the most padded cells, timed,
+    beside the plain version on the same batch.  Returns the kernels
+    line's entry (`entry`) and the phase's numbers."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops import hmm, hmm_kernel
+    p = hmm_packs(call, dev)
+
+    def plain(args, fwd):
+        c, l_, e, tr, m = hmm.gather_pairs(*args[:5], args[5].long(),
+                                           args[6].long(), args[7],
+                                           args[2].shape[2])
+        return hmm.viterbi_score_batch(c, l_, e, *tr, m, forward=fwd)
+
+    def check(got, want, what):
+        d = (got - want).abs()
+        if bool((~torch.isfinite(got) | (d > HMM_ATOL + HMM_RTOL
+                                         * want.abs())).any()):
+            fail(f"the HMM kernel disagrees with its plain version {what}: "
+                 f"max abs err {float(d.max())}")
+        return float(d.max())
+
+    checked, worst = [], 0.0
+    buckets = [b for _, (_, _, bs) in sorted(p["packs"].items()) for b in bs]
+    for b in buckets:
+        take = np.linspace(0, len(b.pairs) - 1, min(len(b.pairs),
+                                                    HMM_CHECK_PAIRS)
+                           ).astype(int)
+        args, _, _ = hmm_launch(p, b, take, dev)
+        row = [b.lpad, b.mpad, len(b.pairs), len(take)]
+        for fwd in (True, False):
+            got = hmm_kernel.hmm_score(*args, fwd)
+            want, plain_ms = timed(lambda: plain(args, fwd))
+            err = check(got, want, f"({'Forward' if fwd else 'Viterbi'}) at "
+                        f"({b.lpad}, {b.mpad})")
+            worst = max(worst, err)
+            perm = torch.randperm(len(take), device=dev)
+            p_args = args[:5] + (args[5][perm].contiguous(),
+                                 args[6][perm].contiguous(), b.lpad)
+            d_args = args[:5] + (args[5].repeat_interleave(2),
+                                 args[6].repeat_interleave(2), b.lpad)
+            g_p = hmm_kernel.hmm_score(*p_args, fwd)
+            g_d = hmm_kernel.hmm_score(*d_args, fwd)
+            if not (torch.equal(g_p, got[perm]) and torch.equal(
+                    g_d[0::2], got) and torch.equal(g_d[1::2], got)):
+                fail(f"the HMM kernel's scores at ({b.lpad}, {b.mpad}) "
+                     "depend on the batch (permuted or duplicated pairs "
+                     "differ)")
+            row += [err, round(plain_ms, 3)]
+        checked.append(row)
+    table = hmm_bucket_table(p, dev, sm_clock_mhz)
+    # one launch at the path's batch size: the bucket with the most
+    # padded cells
+    b = max(buckets, key=lambda x: len(x.pairs) * x.lpad * x.mpad)
+    args, real, n_bytes = hmm_launch(p, b, b.launches()[0], dev)
+    ms = time_ms(lambda: hmm_kernel.hmm_score(*args, True), reps=3)
+    got = hmm_kernel.hmm_score(*args, True)
+    want, plain_ms = timed(lambda: plain(args, True))
+    worst = max(worst, check(got, want, f"on the main batch ({b.lpad}, "
+                                        f"{b.mpad}) x {len(got)}"))
+    bound_ms, bound_by = hmm_bound(real, n_bytes, sm_clock_mhz)
+    entry = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 shape=[len(got), b.lpad, b.mpad], real_cells=real,
+                 padded_cells=len(got) * b.lpad * b.mpad,
+                 registers=hmm_kernel.library().hmm_num_regs(1),
+                 smem_bytes=hmm_kernel.library().hmm_smem_bytes(b.mpad),
+                 tol=dict(atol=HMM_ATOL, rtol=HMM_RTOL))
+    del p, args, got, want
+    torch.cuda.empty_cache()
+    return dict(entry=entry, checked=dict(
+        columns=["lpad", "mpad", "pairs", "checked", "fwd_max_abs_err",
+                 "fwd_plain_ms", "vit_max_abs_err", "vit_plain_ms"],
+        rows=checked), per_bucket=dict(
+        columns=["lpad", "mpad", "pairs", "launches", "real_cells",
+                 "padded_cells", "ms", "bound_ms", "bound_share"],
+        rows=table))
+
+
+def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
+    """small_hmm, stage1_hmm and hmm_kernel; returns the HMM kernel's
+    entry of the kernels line and the pepr input (pepr_genomes)."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops import hmm_kernel, sw
+    from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
+    from pepr_tpu_torch.utils.simulate import simulate_genomes
+
+    # -- small_hmm: the card against the CPU's plain path
+    t = time.time()
+    s_in, s_pool, _ = simulate_genomes(
+        np.random.default_rng(seed + 13), n_ingroup=4, n_families=40,
+        n_random=8, median_len=100.0, max_len=127, n_long=0)
+    cfg = Stage1Config(use_hmm=True, outgroup_count=1,
+                       hmm_min_bits=SMALL_HMM_MIN_BITS)
+    on_gpu = run_stage1(s_in, s_pool, cfg, device="cuda")
+    on_cpu = run_stage1(s_in, s_pool, cfg, device="cpu")
+    same = [x.titles for x in on_gpu.hg_sets] == \
+        [x.titles for x in on_cpu.hg_sets]
+    phase("small_hmm", seconds=round(time.time() - t, 3),
+          proteins=[len(g) for g in s_in + s_pool],
+          hmm_min_bits=SMALL_HMM_MIN_BITS, groups_gpu=len(on_gpu.hg_sets),
+          groups_cpu=len(on_cpu.hg_sets), counts_gpu=on_gpu.counts,
+          identical_groups=same, outgroups_gpu=on_gpu.selected_outgroups,
+          outgroups_cpu=on_cpu.selected_outgroups)
+    if not same or on_gpu.selected_outgroups != on_cpu.selected_outgroups:
+        fail("small use_hmm stage-1 run on the card disagrees with the CPU's")
+    if s_pool[0].taxon not in on_gpu.selected_outgroups:
+        fail("small_hmm: the pool genome was not selected")
+
+    # -- stage1_hmm at the Aquificales shape
+    t = time.time()
+    ingroup, pool, truth = pepr_genomes(seed)
+    data_s = time.time() - t
+    cfg = Stage1Config(use_hmm=True, outgroup_count=2)
+    torch.cuda.synchronize()
+    sw.reset_launch_counts()
+    hmm_kernel.reset_launch_counts()
+    t = time.time()
+    with ScorerRecord() as rec:
+        res = run_stage1(ingroup, pool, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+    counts = dict(res.counts)
+    padded, real = counts.get("hmm_padded_cells", 0), \
+        counts.get("hmm_real_cells", 0)
+    sizes = np.array([len(x) for x in res.hg_sets])
+    phase("stage1_hmm", seconds=round(wall, 3), data_seconds=round(data_s, 3),
+          proteins=[len(g) for g in ingroup + pool],
+          timings={k: round(v, 3) for k, v in res.timings.items()},
+          counts=counts, padded_to_real_cells=padded / max(real, 1),
+          group_size_min_p50_p90_max=[int(sizes.min()), float(
+              np.percentile(sizes, 50)), float(np.percentile(sizes, 90)),
+              int(sizes.max())] if len(sizes) else [],
+          selected_outgroups=res.selected_outgroups, launches=launches)
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the stage1_hmm path")
+    if pool[0].taxon not in res.selected_outgroups:
+        fail(f"stage1_hmm: the pool genome was not selected: "
+             f"{res.selected_outgroups}")
+    if len(rec.calls) != 1:
+        fail(f"stage1_hmm scored {len(rec.calls)} times, expected once")
+
+    # -- hmm_kernel: the kernel against its plain version on the path's
+    # pairs
+    t = time.time()
+    out = hmm_kernel_phase(rec.calls[0], dev, sm_clock_mhz)
+    entry = out["entry"]
+    phase("hmm_kernel", seconds=round(time.time() - t, 3),
+          buckets_checked=out["checked"], per_bucket=out["per_bucket"],
+          **entry)
+    return dict(entry=entry, ingroup=ingroup, pool=pool, truth=truth)
+
+
+def pepr_phase(h: dict, dev, sm_clock_mhz: float) -> dict:
+    """run_pepr with the reference's default track on the pepr_genomes
+    input, files written to a temporary directory; every kernel's launch
+    count is reset just before and read just after; then path_checks on
+    its stage-2 result.  Returns the launches and path_checks' numbers."""
+    import tempfile
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
+    from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
+    from pepr_tpu_torch.tree import rf_distance
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = PeprConfig.default_track(run_name="smoke", out_dir=out_dir)
+        cfg.stage2.support_reps = PEPR_REPS
+        torch.cuda.synchronize()
+        for mod in (pruning, sw, hmm_kernel):
+            mod.reset_launch_counts()
+        t = time.time()
+        res = run_pepr(cfg, genomes=h["ingroup"], outgroup_pool=h["pool"],
+                       device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+        files = sorted(os.path.basename(p) for p in res.output_paths.values()
+                       if os.path.isfile(p))
+    want = sorted([g.taxon for g in h["ingroup"]] + res.selected_outgroups)
+    leaves = sorted(res.tree.leaf_labels())
+    sup = [v for v in res.tree.support if v == v]
+    checks = path_checks(res.stage2, cfg.stage2.support_reps,
+                         cfg.stage2.seed, dev)
+    phase("pepr", seconds=round(wall, 3),
+          timings={k: round(v, 3) for k, v in res.timings.items()},
+          stage1_counts=res.stage1_counts,
+          stage2_timings={k: round(v, 3) for k, v in
+                          res.stage2.timings.items()},
+          config=dict(track="default", full_tree_method=cfg.stage2
+                      .full_tree_method, support_reps=cfg.stage2.support_reps,
+                      min_taxa_multiplier=cfg.min_taxa_multiplier,
+                      refine_cutoff=cfg.refine_cutoff,
+                      cuts=PEPR_CUTS),
+          families_kept=res.stage2.concat.n_genes,
+          trimmed_columns=res.stage2.concat.length,
+          refine_rounds=res.refine_rounds, files=files, leaves=leaves,
+          selected_outgroups=res.selected_outgroups, supports=sup,
+          newick=res.newick,
+          rf_vs_generating_tree=rf_distance(res.tree, h["truth"]),
+          log_likelihood=res.stage2.log_likelihood, launches=launches,
+          **checks)
+    if res.refine_rounds < 1:
+        fail("pepr: no refinement round ran")
+    missing = [sfx for sfx in PEPR_FILES
+               if f"smoke{sfx}" not in files]
+    if missing:
+        fail(f"pepr: output files missing: {missing}")
+    if leaves != want:
+        fail(f"pepr: the tree's leaves {leaves} are not the genomes {want}")
+    if not np.isfinite(res.stage2.log_likelihood):
+        fail("pepr: the log-likelihood is not finite")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the pepr path")
+    return launches, checks
 
 
 def main(argv=None) -> int:
@@ -956,7 +1364,8 @@ def main(argv=None) -> int:
     from pepr_tpu_torch.models.support import jackknife_gene_masks
     from pepr_tpu_torch.models.treebuild import (SCORE_BATCH, _postorder_fix,
                                                  _remap_blen, _spr_candidates)
-    from pepr_tpu_torch.ops import _cuda, profile_align, pruning, sw
+    from pepr_tpu_torch.ops import (_cuda, hmm_kernel, profile_align,
+                                    pruning, sw)
     from pepr_tpu_torch.ops.likelihood import (WagModel, transition_matrices,
                                                tree_to_arrays)
     from pepr_tpu_torch.ops.profile_align import (GRAPHS, _Plan,
@@ -990,12 +1399,14 @@ def main(argv=None) -> int:
     logs = _cuda.build(force=True)
     pruning.library()
     sw.library()
+    hmm_kernel.library()
     phase("build", seconds=round(time.time() - t, 3), ptxas={
         n: [ln.strip() for ln in lg.splitlines()
             if "entry function" in ln or "registers" in ln or "spill" in ln]
         for n, lg in logs.items()})
 
-    s1 = stage1_phases(args.seed, dev, sm_clock)
+    sw_entry = stage1_phases(args.seed, dev, sm_clock)
+    h = hmm_phases(args.seed, dev, sm_clock)
 
     # -- data
     rng = np.random.default_rng(args.seed)
@@ -1019,8 +1430,8 @@ def main(argv=None) -> int:
     # -- kernels: each against its plain version at the slice shape, at
     # the shapes run_stage2_aligned gives them on the true alignments
     # (kept so the numbers stay comparable across PRs), and at the largest
-    # tree; the stage2 and genomes_to_tree phases check them again at the
-    # shapes their own runs give them (path_checks)
+    # tree; the stage2 and pepr phases check them again at the shapes
+    # their own runs give them (path_checks)
     model = WagModel.create(alpha=0.5)
     pi = torch.as_tensor(model.pi, device=dev)
 
@@ -1218,11 +1629,12 @@ def main(argv=None) -> int:
         fail("small run_stage2 on the card disagrees with the CPU's")
 
     # -- stage2 at full width and default depth, from unaligned families
-    cfg = Stage2Config(full_tree_method="ml", support_reps=SUPPORT_REPS)
+    cfg = Stage2Config(full_tree_method="ml", support_reps=STAGE2_REPS)
     phase("stage2_start", config=dict(
         full_tree_method="ml", nni_rounds=cfg.nni_rounds,
         bl_steps=cfg.bl_steps, spr_rounds=2, support_reps=cfg.support_reps,
-        support_bl_steps=cfg.support_bl_steps))
+        support_bl_steps=cfg.support_bl_steps,
+        cuts=[f"support_reps {SUPPORT_REPS} -> {STAGE2_REPS} (time)"]))
     msgs = _Messages()
     port_log = logging.getLogger("pepr_tpu_torch")
     port_log.setLevel(logging.INFO)
@@ -1244,7 +1656,7 @@ def main(argv=None) -> int:
     rf = rf_distance(res.full_tree, truth)
     sup = [v for v in res.tree.support if v == v]
     plans_left = len(profile_align._PLANS)
-    checks = path_checks(res, SUPPORT_REPS, cfg.seed, dev)
+    checks = path_checks(res, STAGE2_REPS, cfg.seed, dev)
     phase("stage2", seconds=round(wall, 3), timings=res.timings,
           align=align, families_in=len(sets),
           families_kept=res.concat.n_genes, trimmed_columns=res.concat.length,
@@ -1262,7 +1674,7 @@ def main(argv=None) -> int:
         fail("full tree does not have the dataset's taxa")
     if rf > N_TAXA - 3:
         fail(f"full tree is far from the generating tree (RF {rf})")
-    if not sup or min(sup) < 0 or max(sup) > SUPPORT_REPS:
+    if not sup or min(sup) < 0 or max(sup) > STAGE2_REPS:
         fail(f"supports out of range: {sup}")
     if not spr_sweeps:
         fail("the full-tree search made no SPR sweep")
@@ -1270,42 +1682,10 @@ def main(argv=None) -> int:
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
-    # -- genomes_to_tree: stage 1's homolog groups through run_stage2
     del res
-    torch.cuda.synchronize()
-    pruning.reset_launch_counts()
-    reset_align_counts()
-    reset_graph_counts()
-    t = time.time()
-    g_res, g_want, g_rf = genomes_to_tree(s1, "cuda")
-    torch.cuda.synchronize()
-    g_wall = time.time() - t
-    g_launches = dict(pruning.LAUNCHES)
-    g_align = dict(ALIGN, **GRAPHS)
-    g_cfg = genomes_to_tree_config(len(s1["ingroup"]), len(s1["selected"]),
-                                   G2T_REPS)
-    g_sup = [v for v in g_res.tree.support if v == v]
-    g_checks = path_checks(g_res, g_cfg.support_reps, g_cfg.seed, dev)
-    phase("genomes_to_tree", seconds=round(g_wall, 3),
-          timings=g_res.timings, align=g_align,
-          config=dict(min_taxa=g_cfg.min_taxa, max_taxa=g_cfg.max_taxa,
-                      full_tree_method=g_cfg.full_tree_method,
-                      support_reps=g_cfg.support_reps),
-          groups_in=len(s1["hg_sets"]), families_kept=g_res.concat.n_genes,
-          trimmed_columns=g_res.concat.length,
-          leaves=sorted(g_res.tree.leaf_labels()),
-          log_likelihood=g_res.log_likelihood, gamma_alpha=g_res.gamma_alpha,
-          rf_vs_generating_tree=g_rf, supports=g_sup, launches=g_launches,
-          **g_checks)
-    if sorted(g_res.tree.leaf_labels()) != g_want:
-        fail(f"genomes_to_tree: the tree's leaves are not the {len(g_want)} "
-             f"genomes {g_want}")
-    if not np.isfinite(g_res.log_likelihood):
-        fail("genomes_to_tree: the log-likelihood is not finite")
-    for k, n in g_launches.items():
-        if n <= 0:
-            fail(f"kernel {k} was not launched on the genomes_to_tree path")
-    del g_res
+
+    # -- pepr: the reference's default run, genomes to the output files
+    p_launches, p_checks = pepr_phase(h, dev, sm_clock)
 
     # -- profile: device time by kernel over a shallower stage-2 run
     from torch.profiler import ProfilerActivity, profile
@@ -1322,7 +1702,7 @@ def main(argv=None) -> int:
     # the kernels' numbers at the full tree's shape; errors are the
     # largest over every shape checked
     every = list(shapes.values()) + [
-        v for c in (checks, g_checks) for v in c["kernel_shapes"].values()]
+        v for c in (checks, p_checks) for v in c["kernel_shapes"].values()]
 
     def entry(k):
         at = shapes["full_tree"][k]
@@ -1333,18 +1713,27 @@ def main(argv=None) -> int:
             ms=at["ms"], plain_ms=at["plain_ms"], bound_ms=at["bound_ms"],
             bound_by=at["bound_by"], shape="full_tree")
 
+    # launches: the pepr run's (the reference's default run, the main
+    # path); no PyTorch call computes any of these functions: no library
+    # time
     kernels = [
         dict(name=k, route="cuda", source="pepr_tpu_torch/csrc/pruning.cu",
-             replaces=rep, launches=launches[k], **entry(k),
+             replaces=rep, launches=p_launches[k], **entry(k),
              library_ms=None)
         for k, rep in (
             ("pruning_fwd", "pepr_tpu/ops/pallas_pruning.py:113"),
             ("pruning_bwd", "pepr_tpu/ops/pallas_pruning_grad.py:118"))]
-    # no PyTorch call computes Smith-Waterman: no library time
     kernels.append(dict(name="sw", route="cuda",
                         source="pepr_tpu_torch/csrc/sw.cu",
                         replaces="pepr_tpu/ops/pallas_sw.py:64",
-                        **s1["entry"], library_ms=None))
+                        **dict(sw_entry, launches=p_launches["sw"]),
+                        library_ms=None))
+    kernels.append(dict(name="hmm", route="cuda",
+                        source="pepr_tpu_torch/csrc/hmm.cu",
+                        replaces="pepr_tpu/ops/hmm.py:206",
+                        note="not a TPU kernel (XLA scan in the reference)",
+                        launches=p_launches["hmm"], **h["entry"],
+                        library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

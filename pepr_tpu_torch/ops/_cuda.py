@@ -18,7 +18,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("pruning", "sw")
+SOURCES = ("pruning", "sw", "hmm")
 
 
 def source_path(name: str) -> str:

@@ -46,6 +46,8 @@ from pepr_tpu_torch.ops import _cuda
 
 N_AA = 20
 RESCALE_EVERY = 2
+# sites a tile of the plain gradient (site_ll_grad_reference)
+GRAD_TILE = 8192
 
 SOURCE = _cuda.source_path("pruning")
 
@@ -466,18 +468,19 @@ def pruning_bwd(codes, children, pmats, pi, ct) -> torch.Tensor:
 # -- plain versions ----------------------------------------------------------
 
 def tip_partials(codes: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
-    """(..., L) codes -> (..., L, 20): one-hot, and ones over the live
-    states (pi > 1e-6) for ambiguous codes (>= 20)."""
+    """(..., L) codes -> (..., L, 20) in pi's type: one-hot, and ones
+    over the live states (pi > 1e-6) for ambiguous codes (>= 20)."""
     c = codes.long()
     amb = (c >= N_AA) | (c < 0)
     onehot = torch.nn.functional.one_hot(c.clamp(0, N_AA - 1), N_AA)
-    live = (pi > 1e-6).to(torch.float32)
-    return torch.where(amb[..., None], live, onehot.to(torch.float32))
+    live = (pi > 1e-6).to(pi.dtype)
+    return torch.where(amb[..., None], live, onehot.to(pi.dtype))
 
 
 def site_ll_reference(codes, children, pmats, pi) -> torch.Tensor:
     """Plain PyTorch per-site log-likelihood (B, L), differentiable in
-    `pmats` by ordinary autograd."""
+    `pmats` by ordinary autograd; in float32, or in float64 where
+    `pmats` and `pi` are float64."""
     B = children.shape[0]
     n_int = children.shape[1]
     n_leaves = codes.shape[-2]
@@ -486,7 +489,7 @@ def site_ll_reference(codes, children, pmats, pi) -> torch.Tensor:
     for b in range(B):
         tips = tip_partials(codes if codes.dim() == 2 else codes[b], pi)
         parts: dict[int, torch.Tensor] = {}
-        logscale = torch.zeros(tips.shape[1], dtype=torch.float32,
+        logscale = torch.zeros(tips.shape[1], dtype=pmats.dtype,
                                device=pmats.device)
         for i, row in enumerate(children[b].tolist()):
             prod = None
@@ -513,12 +516,24 @@ def site_ll_reference(codes, children, pmats, pi) -> torch.Tensor:
 
 def site_ll_grad_reference(codes, children, pmats, pi, ct) -> torch.Tensor:
     """Plain PyTorch d(sum_s ct[b, s] ll[b, s])/d pmats, by autograd
-    through `site_ll_reference`."""
+    through `site_ll_reference` on tiles of GRAD_TILE sites, the tiles'
+    gradients summed pairwise.  One float32 sum over all the sites
+    drifts from the float64 gradient as their count grows, far more than
+    the kernel's per-warp slots do (PERF.md, F4); the tiles keep it near
+    the kernel's.  Up to GRAD_TILE sites it is one autograd pass."""
+    L = codes.shape[-1]
+    parts = []
     with torch.enable_grad():
-        p = pmats.detach().requires_grad_(True)
-        ll = site_ll_reference(codes, children, p, pi)
-        (g,) = torch.autograd.grad((ll * ct).sum(), p)
-    return g
+        for s0 in range(0, L, GRAD_TILE):
+            p = pmats.detach().requires_grad_(True)
+            ll = site_ll_reference(codes[..., s0:s0 + GRAD_TILE], children,
+                                   p, pi)
+            (g,) = torch.autograd.grad(
+                (ll * ct[:, s0:s0 + GRAD_TILE]).sum(), p)
+            parts.append(g)
+    while len(parts) > 1:
+        parts = [sum(parts[i:i + 2]) for i in range(0, len(parts), 2)]
+    return parts[0]
 
 
 class SiteLL(torch.autograd.Function):

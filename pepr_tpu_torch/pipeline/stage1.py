@@ -8,9 +8,10 @@ minIdentity 10, minScore 15 — :323-326), bidirectional filter
 (:398-431), then outgroup scoring/selection against the outgroup pool
 (the role of HMMSetEnhancer.java:165-215: per-genome score sums pick
 the top `outgroup_count` pool genomes, and each selected genome's best
-member joins each group), here with the Smith-Waterman scorer
-(`use_hmm=False`).  The profile-HMM enhancer is not ported yet
-(ROADMAP.md, Queue 1 item 11): `use_hmm=True` raises.
+member joins each group).  With `use_hmm` (the reference default) the
+profile-HMM enhancer (models/hmm_enhancer.py, scoring through the
+card's Forward kernel) rebuilds the groups and selects the outgroups;
+otherwise the Smith-Waterman scorer selects them.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ class Stage1Config:
     use_hmm: bool = True  # HMM set enhancement (the reference default)
     # the HMM enhancer's cutoff on the HMMER bit scale, S >= log2(N/E)
     # ~ 144 bits for the reference's `-E 1e-40` at ~3k-protein genomes
-    # (HMMSetEnhancer.java:527-530); unused until the enhancer is ported
+    # (HMMSetEnhancer.java:527-530)
     hmm_min_bits: float = 144.0
     unique_species: bool = False
     unique_genus: bool = False
@@ -64,7 +65,9 @@ class Stage1Result:
     hg_sets: list[SequenceSet]
     selected_outgroups: list[str]  # taxon names
     timings: dict = field(default_factory=dict)
-    # sizes along the way: sw_pairs, hits, groups
+    # sizes along the way: sw_pairs, hits, groups; with use_hmm the
+    # enhancer's prefilter pairs, scored pairs by bucket, padded and real
+    # DP cells (hmm_*)
     counts: dict = field(default_factory=dict)
 
 
@@ -176,12 +179,6 @@ def run_stage1(ingroup: list[SequenceSet], outgroup_pool: list[SequenceSet],
     resume and deadlines (`store`, `deadline` in the JAX package) are
     not ported yet."""
     cfg = cfg or Stage1Config()
-    if cfg.use_hmm:
-        raise NotImplementedError(
-            "run_stage1 with use_hmm=True needs the profile-HMM enhancer "
-            "(models/hmm_enhancer.py, ops/hmm.py), which is not ported yet "
-            "(ROADMAP.md, Queue 1 item 11); pass Stage1Config(use_hmm=False) "
-            "for the Smith-Waterman outgroup scorer")
     dev = resolve_device(device)
     timings: dict = {}
     counts: dict = {}
@@ -218,6 +215,23 @@ def run_stage1(ingroup: list[SequenceSet], outgroup_pool: list[SequenceSet],
     counts["groups"] = len(hg_sets)
     log.info("stage1: MCL done in %.1fs (%d groups)", timings["mcl"],
              len(hg_sets))
+
+    if cfg.use_hmm:
+        from pepr_tpu_torch.models.hmm_enhancer import enhance_homolog_groups
+        t0 = time.time()
+        # the HMM sweep searches every genome, re-admitting any
+        # duplicate-species genomes left out of the homology search
+        # (PhyloPipeline.java:274-276 comment + HMMSetEnhancer flow)
+        enh = enhance_homolog_groups(
+            hg_sets, ingroup, outgroup_pool,
+            outgroup_count=cfg.outgroup_count if outgroup_pool else 0,
+            min_bits=cfg.hmm_min_bits, device=dev, timings=timings,
+            counts=counts)
+        timings["hmm_enhancement"] = time.time() - t0
+        log.info("stage1: HMM enhancement done in %.1fs (outgroups: %s)",
+                 timings["hmm_enhancement"], enh.selected_outgroups)
+        return Stage1Result(universe, enh.enhanced_sets,
+                            enh.selected_outgroups, timings, counts)
 
     selected_names: list[str] = []
     if outgroup_pool and cfg.outgroup_count > 0:

@@ -90,7 +90,8 @@ def simulate_genomes(rng, n_ingroup: int = 11, n_pool: int = 1,
                      median_len: float = 306.0, sigma: float = 0.5,
                      min_len: int = 50, max_len: int = 2000,
                      long_lengths=(2100, 2600), n_long: int = 3,
-                     p_ingroup: float = 0.8, p_pool: float = 0.85):
+                     p_ingroup: float = 0.8, p_pool: float = 0.85,
+                     ingroup_tree: Tree | None = None):
     """Protein genomes for stage 1, in the manner of the JAX package's
     conformance/gen50.py: a random ingroup tree (branch lengths
     0.01 + Exp(0.06)) with the outgroup pool on a 0.45 basal branch; per
@@ -100,7 +101,9 @@ def simulate_genomes(rng, n_ingroup: int = 11, n_pool: int = 1,
     genomes); plus `n_random` unrelated random proteins per genome.
     Family lengths are lognormal (median `median_len`, shape `sigma`)
     clipped to [min_len, max_len], and `n_long` families are drawn
-    uniformly from `long_lengths`.
+    uniformly from `long_lengths`.  `ingroup_tree`, if given, replaces
+    the random ingroup tree; its leaves are the ingroup taxa
+    (`Synthica_specNN_strain_X`, NN from 00).
 
     Titles are `famNNNN_<taxon> [<Genus species strain>]` (random
     proteins `rndNNNN_...`), with a distinct genus + species per genome.
@@ -111,7 +114,12 @@ def simulate_genomes(rng, n_ingroup: int = 11, n_pool: int = 1,
     ingroup = [f"Synthica spec{i:02d} strain X" for i in range(n_ingroup)]
     pool = [f"Outgroupia outg{i} strain Y" for i in range(n_pool)]
     label = {n: n.replace(" ", "_") for n in ingroup + pool}
-    in_nwk = to_newick(random_tree([label[n] for n in ingroup], rng))[:-1]
+    if ingroup_tree is None:
+        ingroup_tree = random_tree([label[n] for n in ingroup], rng)
+    elif sorted(ingroup_tree.leaf_labels()) != sorted(label[n]
+                                                      for n in ingroup):
+        raise ValueError("ingroup_tree's leaves must be the ingroup taxa")
+    in_nwk = to_newick(ingroup_tree)[:-1]
     if n_pool == 1:
         og_nwk = label[pool[0]]
     else:

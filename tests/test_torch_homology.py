@@ -1,8 +1,9 @@
 """The port's stage 1 (pepr_tpu_torch: ops/kmer_filter, ops/mcl,
-models/homology, io/hits, pipeline/stage1 with use_hmm=False) against
-the JAX package on the CPU.  Tolerances: k-mer profiles and cosine
-similarities within abs 1e-6 (float32 sums in another order); every
-index, pair list, cluster, hit table, group and outgroup identical."""
+models/homology, io/hits, pipeline/stage1 with and without the HMM
+enhancer) against the JAX package on the CPU.  Tolerances: k-mer
+profiles and cosine similarities within abs 1e-6 (float32 sums in
+another order); every index, pair list, cluster, hit table, group and
+outgroup identical."""
 
 import numpy as np
 import pytest
@@ -294,10 +295,35 @@ def test_run_stage1_identical_groups_and_outgroups(stage1, genomes):
         set(got.timings)
 
 
-def test_run_stage1_with_hmm_is_not_ported(genomes):
+def test_run_stage1_with_hmm_identical_groups_and_outgroups(genomes,
+                                                            monkeypatch):
+    """use_hmm=True, the reference default: the HMM enhancer rebuilds
+    the groups and selects the outgroup.  These proteins are under 128
+    residues, below the 144-bit cutoff the pipeline uses for ~3k-protein
+    genomes, so both run at 40 bits; the JAX scorer at a batch of 64
+    pairs instead of 4,096 (a pair's score does not depend on its
+    chunk)."""
+    import functools
+
+    import pepr_tpu.models.hmm_enhancer as jenh
+    monkeypatch.setattr(jenh, "profile_score_pairs", functools.partial(
+        jenh.profile_score_pairs, batch_size=64))
     ing, pool = genomes
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        run_stage1(ing, pool, Stage1Config(), device="cpu")
+    got = run_stage1(ing, pool, Stage1Config(hmm_min_bits=40.0),
+                     device="cpu")
+    want = j_run_stage1(_jax_sets(ing), _jax_sets(pool),
+                        JConfig(hmm_min_bits=40.0))
+    assert [s.name for s in got.hg_sets] == [s.name for s in want.hg_sets]
+    assert [s.titles for s in got.hg_sets] == \
+        [s.titles for s in want.hg_sets]
+    assert got.selected_outgroups == want.selected_outgroups == \
+        [pool[0].taxon]
+    # the enhancer added pool members to groups
+    assert any(pool[0].taxon in s.taxa for s in got.hg_sets)
+    assert {"hmm_enhancement", "hmm_align", "hmm_prefilter",
+            "hmm_scoring"} <= set(got.timings)
+    assert got.counts["hmm_prefilter_pairs"] > 0
+    assert got.counts["hmm_real_cells"] <= got.counts["hmm_padded_cells"]
 
 
 def test_homology_file_reads_blast8(searches, genomes, tmp_path):

@@ -2,13 +2,15 @@
 a small size: the seeded deletions and the unaligned homolog groups
 the stage2 phase builds, the dyadic profiles and last merge wave of
 small_align, run_stage2 from unaligned families with the stage2 phase's
-checks, and genomes_to_tree on a small simulate_genomes output through
-run_stage1 with the pipeline's derived config.  Port only: the JAX
+checks, and genomes to a tree through run_pepr (the pepr phase's route)
+on a small simulate_genomes output, with the pipeline's derived
+config.  Port only: the JAX
 package is held against the port in test_torch_msa.py and
 test_torch_trim_stage2.py."""
 
 import importlib.util
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -17,8 +19,9 @@ import torch
 from pepr_tpu_torch.alphabet import GAP
 from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
 from pepr_tpu_torch.ops.profile_align import nw_profile_batch
-from pepr_tpu_torch.pipeline import stage2
-from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
+from pepr_tpu_torch.pipeline import pepr, stage2
+from pepr_tpu_torch.pipeline.pepr import PeprConfig
+from pepr_tpu_torch.pipeline.stage1 import Stage1Config
 from pepr_tpu_torch.pipeline.stage2 import Stage2Config, run_stage2
 from pepr_tpu_torch.tree import rf_distance
 from pepr_tpu_torch.utils.simulate import (random_tree, simulate_families,
@@ -113,25 +116,56 @@ def test_run_stage2_from_unaligned_families(smoke, families, monkeypatch):
     assert sup and min(sup) >= 0 and max(sup) <= 2
 
 
-def test_genomes_to_tree_config(smoke):
-    cfg = smoke.genomes_to_tree_config(11, 1, smoke.G2T_REPS)
+def test_genomes_to_tree_config(monkeypatch):
+    """The stage-2 config run_pepr derives from the genome count on its
+    way from genomes to a tree (`pepr_tpu/pipeline/pepr.py:140-148`),
+    the route chip_smoke.py's pepr phase drives."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def stage2_stub(hg_sets, cfg, device=None):
+        seen.append(cfg)
+        raise Stop
+
+    def run(n_genomes, n_selected, **kw):
+        sel = [f"out{i}" for i in range(n_selected)]
+        stage1 = SimpleNamespace(hg_sets=[], selected_outgroups=sel,
+                                 timings={}, counts={})
+        monkeypatch.setattr(pepr, "run_stage1", lambda *a, **k: stage1)
+        monkeypatch.setattr(pepr, "run_stage2", stage2_stub)
+        with pytest.raises(Stop):
+            pepr.run_pepr(PeprConfig(**kw), genomes=[None] * n_genomes,
+                          outgroup_pool=[], device="cpu")
+        return seen[-1]
+
+    cfg = run(11, 1)
     assert (cfg.min_taxa, cfg.max_taxa) == (8, 12)
-    assert cfg.full_tree_method == "fast_ml" and cfg.support_reps == 8
     assert cfg.target_sets is None and cfg.msa_refine_iters == 1
-    assert smoke.genomes_to_tree_config(3, 2, 1).min_taxa == 3
+    cfg = run(11, 1, stage2=Stage2Config(full_tree_method="fast_ml",
+                                         support_reps=8))
+    assert cfg.full_tree_method == "fast_ml" and cfg.support_reps == 8
+    assert run(3, 2).min_taxa == 3
+    assert (run(11, 1, min_taxa_multiplier=0.99).min_taxa) == 10
 
 
-def test_genomes_to_tree_rehearsal(smoke):
+def test_genomes_to_tree_rehearsal():
+    """Genomes to a rooted tree through run_pepr on the CPU, at a small
+    size (stage 1 without the HMM, no refinement): the tree's leaves are
+    the ingroup genomes and the selected outgroup."""
     ing, pool, truth = simulate_genomes(
         np.random.default_rng(32), n_ingroup=4, n_families=30, n_random=3,
         median_len=120.0, max_len=250, n_long=0)
-    s1res = run_stage1(ing, pool, Stage1Config(use_hmm=False,
-                                                outgroup_count=2),
-                       device="cpu")
-    s1 = dict(hg_sets=s1res.hg_sets, selected=s1res.selected_outgroups,
-              ingroup=ing, truth=truth)
-    assert s1["selected"] == [pool[0].taxon]
-    res, want, rf = smoke.genomes_to_tree(s1, "cpu", reps=2)
+    cfg = PeprConfig(run_name="rehearsal", outgroup_count=2, refine=False,
+                     stage1=Stage1Config(use_hmm=False),
+                     stage2=Stage2Config(full_tree_method="fast_ml",
+                                         support_reps=2))
+    res = pepr.run_pepr(cfg, genomes=ing, outgroup_pool=pool,
+                        write_files=False, device="cpu")
+    assert res.selected_outgroups == [pool[0].taxon]
+    want = sorted([g.taxon for g in ing] + res.selected_outgroups)
     assert sorted(res.tree.leaf_labels()) == want
-    assert len(want) == 5 and 0 <= rf <= 2
-    assert np.isfinite(res.log_likelihood)
+    assert len(want) == 5 and 0 <= rf_distance(res.tree, truth) <= 2
+    assert np.isfinite(res.stage2.log_likelihood)
+    assert set(res.timings) == {"stage1", "stage2"}
