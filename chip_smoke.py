@@ -41,18 +41,24 @@ Phases, each printing one JSON line with the elapsed seconds:
   stage1_hmm  run_stage1(use_hmm=True, outgroup_count=2) at the
            Aquificales shape on the pepr_genomes input (a planted clade,
            below); the SW and HMM launch counts are reset just before and
-           read just after; the pool genome must be selected; the
+           read just after (the HMM's must be the card plan's, one a
+           pack); the pool genome must be selected; the
            enhancer's prefilter pairs, scored pairs by bucket, padded and
            real DP cells and its sub-phase seconds (alignment, prefilter,
            scoring) are printed
   hmm_kernel  the HMM kernel against its plain PyTorch version on the
-           stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a (lpad,
-           mpad) bucket, Forward and Viterbi, within HMM_ATOL + HMM_RTOL;
-           the same batch permuted and with each pair twice must give
-           bit-identical scores; every bucket at the main path's
-           launches, timed, beside its bound (per_bucket); one launch at
-           the path's batch size for the bucket with the most padded
-           cells, timed beside its bound and the plain version's time
+           stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a reference
+           (lpad, mpad) bucket, Forward and Viterbi, within HMM_ATOL +
+           HMM_RTOL; the same batch permuted and with each pair twice
+           must give bit-identical scores; every launch of the card's
+           plan (one a pack), timed, beside its bound (per_launch), its
+           scores identical to the reference buckets' launches'; each
+           configuration of each pack (threads a pair) with its
+           registers, shared memory and resident warps an SM, timed
+           (variants); the kernels line's entry is the card plan's
+           largest launch (the widest pack's), its time beside its bound,
+           HMM_CHECK_PAIRS of its own scores held against the plain
+           version, which is timed on them beside the kernel
   data     the seeded 53-taxon dataset: 405 WAG+Gamma(0.5) families of
            100-250 columns, 64,433 concatenated columns, ~10% of the
            taxa absent from each family
@@ -180,21 +186,26 @@ FINAL_LL_RTOL = 1e-5  # a path's final LL, kernel against the plain path
 FWD_RTOL = 1e-5  # per-site LL, elementwise (plus 1e-5 absolute)
 BWD_RTOL = 1e-4  # gradient, max |diff| over max |ref| (summation order)
 
-# the HMM kernel: special-function (MUFU) operations of one real DP cell
-# of Plan7 Forward (the function, not this kernel's extra work): five
-# logaddexp2s (three for the match state, one for the insert, one for
-# the delete state), each an exp2 and a log, and one exp2 for the total;
-# the kernel's lane-parallel delete chain adds a sixth (composing the
-# chain's maps), which is not counted; the card's rate is
-# MUFU_PER_SM_CLOCK results a clock on each of SMS SMs at the SM clock
-HMM_MUFU_PER_CELL = 11
+# the HMM kernel: special-function (MUFU) results of one real DP cell of
+# Plan7 Forward, the least the function needs: the match state's
+# logaddexp2 of four terms is one max, three exp2 (the max's own term is
+# 1) and one log2 (4), the insert's and the delete's two-term ones an
+# exp2 and a log2 each (2 + 2), and the total one exp2 (1); the
+# reference's pairwise form takes 11 (three two-term logaddexp2s for the
+# match state), and shares are printed at both; csrc/hmm.cu spends 13
+# (the pairwise form, and its lane-parallel delete chain is composed and
+# then applied: a logaddexp2 more); the card's rate is MUFU_PER_SM_CLOCK
+# results a clock on each of SMS SMs at the SM clock
+HMM_MUFU_PER_CELL = 9
+HMM_MUFU_PER_CELL_PAIRWISE = 11
 SMS = 132
 MUFU_PER_SM_CLOCK = 16
 HMM_FLOATS_PER_COLUMN = 27  # a profile column: 20 emissions, 7 transitions
 HMM_CHECK_PAIRS = 512  # pairs per bucket held against the plain version
-# kernel against plain, bits: sums in another order (per-lane online
-# log-sum-exp2 against per-row sums, a lane-blocked delete chain against
-# the Kogge-Stone doubling), over up to 4,096 x 4,096 cells
+# kernel against plain, bits: sums in another order (per-thread online
+# log-sum-exp2 against per-row sums, a thread-blocked delete chain
+# against the Kogge-Stone doubling) and the MUFU's approximate exp2 and
+# log2, over up to 4,096 x 4,096 cells
 HMM_ATOL = 1e-3
 HMM_RTOL = 1e-5
 # small_hmm: proteins under 128 residues score below the pipeline's 144
@@ -1047,12 +1058,13 @@ class ScorerRecord:
         self.module.profile_score_pairs = self.orig
 
 
-def hmm_bound(real_cells: int, n_bytes: int, sm_clock_mhz: float):
+def hmm_bound(real_cells: int, n_bytes: int, sm_clock_mhz: float,
+              mufu_per_cell: int = HMM_MUFU_PER_CELL):
     """Least time (ms) for Forward scoring: its special-function
-    operations (HMM_MUFU_PER_CELL a real cell) over the card's rate
+    results (`mufu_per_cell` a real cell) over the card's rate
     (MUFU_PER_SM_CLOCK a clock on each of SMS SMs), or its bytes over
     HBM bandwidth; returns (ms, bound_by)."""
-    t_ops = real_cells * HMM_MUFU_PER_CELL / (
+    t_ops = real_cells * mufu_per_cell / (
         SMS * MUFU_PER_SM_CLOCK * sm_clock_mhz * 1e6)
     t_bytes = n_bytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -1061,94 +1073,154 @@ def hmm_bound(real_cells: int, n_bytes: int, sm_clock_mhz: float):
 
 def hmm_packs(call, dev) -> dict:
     """The device packs of a recorded scorer call (`call`: sequences,
-    profiles, pairs) and its launches, from the scorer's own planner
-    (`ops/hmm.score_plan`, `device_pack`): the sequence pack, and per
-    mpad its profile pack, the pack's lengths and its buckets."""
+    profiles, pairs) and both plans of the scorer's own planners
+    (`ops/hmm.score_plan`, `card_score_plan`, `device_pack`,
+    `walk_pack`): the sequence
+    pack, and per mpad the profile pack, its lengths, its walk pack (and
+    the milliseconds making it took), the reference's buckets (`buckets`)
+    and the card's one bucket (`card`)."""
     import numpy as np
     import torch
-    from pepr_tpu_torch.ops import hmm
+    from pepr_tpu_torch.ops import hmm, hmm_kernel
     seqs, hmms, pairs = call
     codes_np, lens_np = hmm.pack_sequences(seqs)
     hmm_lens = np.array([h.length for h in hmms], np.int64)
+    card = {mpad: bs[0] for mpad, _, bs in hmm.card_score_plan(
+        lens_np, hmm_lens, pairs, codes_np.shape[1])}
     packs = {}
     for mpad, members, buckets in hmm.score_plan(lens_np, hmm_lens, pairs):
         pack, m_lens = hmm.device_pack([hmms[i] for i in members], mpad, dev)
-        packs[mpad] = (pack, m_lens, buckets)
+        walk, walk_ms = timed(lambda: hmm_kernel.walk_pack(*pack))
+        packs[mpad] = dict(pack=pack, m_lens=m_lens, walk=walk,
+                           walk_ms=walk_ms, buckets=buckets, card=card[mpad])
     return dict(codes=torch.as_tensor(codes_np, device=dev),
                 lens=torch.as_tensor(lens_np, device=dev), lens_np=lens_np,
-                packs=packs)
+                packs=packs, n_pairs=len(pairs))
 
 
-def hmm_launch(p: dict, b, sel, dev) -> tuple:
-    """The kernel's arguments for the pairs `sel` of bucket `b`, their
-    real DP cells, and the bytes the launch must move (the pairs' codes,
-    the distinct profiles' emissions and transitions, the index vectors
-    and the scores)."""
+def hmm_launch(p: dict, b, sel, dev, walk=None) -> tuple:
+    """The kernel's arguments for the pairs `sel` of bucket `b` (on its
+    pack's walk pack, or `walk`), their real DP cells, and the bytes the
+    launch must move (the pairs' codes, the distinct profiles' emissions
+    and transitions, the index vectors and the scores)."""
     import numpy as np
     import torch
-    pack, m_lens, _ = p["packs"][b.mpad]
+    q = p["packs"][b.mpad]
     si, hi = b.seq_idx[sel], b.hmm_idx[sel]
-    args = (p["codes"], p["lens"], *pack, torch.as_tensor(si, device=dev),
-            torch.as_tensor(hi, device=dev), b.lpad)
+    args = (p["codes"], p["lens"], walk or q["walk"],
+            torch.as_tensor(si, device=dev), torch.as_tensor(hi, device=dev),
+            b.lpad)
     uniq = np.unique(hi)
     n_bytes = int(np.minimum(p["lens_np"][si], b.lpad).sum()) + 4 * int((
-        HMM_FLOATS_PER_COLUMN * np.minimum(m_lens[uniq], b.mpad)).sum()) \
+        HMM_FLOATS_PER_COLUMN * np.minimum(q["m_lens"][uniq], b.mpad)).sum()) \
         + 12 * len(si)
-    return args, b.real_cells(p["lens_np"], m_lens, sel), n_bytes
+    return args, b.real_cells(p["lens_np"], q["m_lens"], sel), n_bytes
 
 
-def hmm_bucket_table(p: dict, dev, sm_clock_mhz: float) -> list:
-    """Every bucket at the main path's launches (its `launches()`), each
-    launch timed once: per bucket [lpad, mpad, pairs, launches, real
-    cells, padded cells, ms, bound ms, bound share]."""
+def hmm_launch_table(p: dict, dev, sm_clock_mhz: float) -> tuple:
+    """Every launch of the card's plan (one a pack, as profile_score_pairs
+    makes them on the card), Forward, each timed once: rows [mpad,
+    threads, pairs, real cells, walk-pack ms, ms, bound ms, bound share,
+    bound share at HMM_MUFU_PER_CELL_PAIRWISE]; and the (B,) scores of
+    every pair of the call, by its index."""
+    import torch
     from pepr_tpu_torch.ops import hmm_kernel
     rows = []
-    for mpad, (_, _, buckets) in sorted(p["packs"].items()):
-        for b in buckets:
-            ms = real = nb = 0
-            for sel in b.launches():
-                a, r, n = hmm_launch(p, b, sel, dev)
-                ms += time_ms(lambda: hmm_kernel.hmm_score(*a, True), reps=1,
-                              warmup=0)
-                real, nb = real + r, nb + n
-            bound_ms, _ = hmm_bound(real, nb, sm_clock_mhz)
-            rows.append([b.lpad, mpad, len(b.pairs), len(b.launches()), real,
-                         len(b.pairs) * b.lpad * mpad, round(ms, 4),
-                         round(bound_ms, 4), round(bound_ms / ms, 4)])
+    scores = torch.empty(p["n_pairs"], dtype=torch.float32, device=dev)
+    for mpad, q in sorted(p["packs"].items()):
+        b = q["card"]
+        a, real, nb = hmm_launch(p, b, slice(None), dev)
+        got, ms = timed(lambda: hmm_kernel.hmm_score(*a, True))
+        scores[torch.as_tensor(b.pairs, device=dev)] = got
+        bound_ms, _ = hmm_bound(real, nb, sm_clock_mhz)
+        pair_ms, _ = hmm_bound(real, nb, sm_clock_mhz,
+                                 HMM_MUFU_PER_CELL_PAIRWISE)
+        rows.append([mpad, q["walk"].threads, len(b.pairs), real,
+                     round(q["walk_ms"], 4), round(ms, 4),
+                     round(bound_ms, 4), round(bound_ms / ms, 4),
+                     round(pair_ms / ms, 4)])
+    return rows, scores
+
+
+HMM_LAUNCH_COLUMNS = ["mpad", "threads", "pairs", "real_cells",
+                      "walk_pack_ms", "ms", "bound_ms", "bound_share",
+                      "bound_share_pairwise"]
+
+
+def hmm_variants(p: dict, dev) -> list:
+    """Each kernel configuration (threads a pair) that can take a pack of
+    the card's plan, on that pack's launch: [mpad, threads, columns a
+    thread, registers, shared bytes a block, resident warps an SM, ms,
+    the scorer's choice], Forward, the chosen one first; every other
+    variant's scores must equal the chosen one's within HMM_ATOL +
+    HMM_RTOL."""
+    import torch
+    from pepr_tpu_torch.ops import hmm_kernel
+    rows = []
+    for mpad, q in sorted(p["packs"].items()):
+        chosen = q["walk"].threads
+        want = None
+        for threads in [chosen] + [t for t in (32, 64, 128, 256, 512)
+                                   if t != chosen]:
+            if hmm_kernel.library().hmm_columns(threads, mpad) < 0:
+                continue
+            walk = q["walk"] if threads == chosen else \
+                hmm_kernel.walk_pack(*q["pack"], threads=threads)
+            a, _, _ = hmm_launch(p, q["card"], slice(None), dev, walk)
+            got, ms = timed(lambda: hmm_kernel.hmm_score(*a, True))
+            if want is None:
+                want = got
+            d = (got - want).abs()
+            if bool((~torch.isfinite(got) | (d > HMM_ATOL + HMM_RTOL
+                                             * want.abs())).any()):
+                fail(f"HMM kernel variant of {threads} threads at Mpad "
+                     f"{mpad} disagrees: max abs err {float(d.max())}")
+            f = hmm_kernel.variant_facts(threads, mpad)
+            rows.append([mpad, threads, f["columns"], f["registers"],
+                         f["smem_bytes"], f["warps_per_sm"], round(ms, 4),
+                         threads == chosen])
+            del walk, a, got
     return rows
 
 
 def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
     """The HMM kernel against its plain version on the pairs of a
     stage1_hmm run (`call`: the recorded scorer inputs), bucket by
-    bucket: up to HMM_CHECK_PAIRS real pairs, Forward and Viterbi,
-    within HMM_ATOL + HMM_RTOL |plain|; the same batch permuted, and
-    with each pair twice, bit-identical; every bucket's launches as the
-    main path cuts them, timed, beside the bound; then one launch at the
-    path's batch size for the bucket with the most padded cells, timed,
-    beside the plain version on the same batch.  Returns the kernels
-    line's entry (`entry`) and the phase's numbers."""
+    reference bucket: up to HMM_CHECK_PAIRS real pairs, Forward and
+    Viterbi, within HMM_ATOL + HMM_RTOL |plain|; the same batch permuted,
+    and with each pair twice, bit-identical; every launch of the card's
+    plan timed beside the bound, and its scores equal to the reference
+    buckets' launches' (lpad enters only as the cap); every configuration
+    of each pack timed (`hmm_variants`); then the kernels line's entry
+    from the card plan's largest launch: its time and bound, and a sample
+    of its own scores against the plain version, which is timed on the
+    sample beside the kernel (`plain_ms`, `sample_ms`).  Returns that
+    entry (`entry`) and the phase's numbers."""
     import numpy as np
     import torch
     from pepr_tpu_torch.ops import hmm, hmm_kernel
     p = hmm_packs(call, dev)
 
     def plain(args, fwd):
-        c, l_, e, tr, m = hmm.gather_pairs(*args[:5], args[5].long(),
-                                           args[6].long(), args[7],
-                                           args[2].shape[2])
+        q = p["packs"][args[2].mpad]
+        c, l_, e, tr, m = hmm.gather_pairs(args[0], args[1], *q["pack"],
+                                           args[3].long(), args[4].long(),
+                                           args[5], args[2].mpad)
         return hmm.viterbi_score_batch(c, l_, e, *tr, m, forward=fwd)
+
+    used = [0.0]  # the largest share of the tolerance any pair used
 
     def check(got, want, what):
         d = (got - want).abs()
-        if bool((~torch.isfinite(got) | (d > HMM_ATOL + HMM_RTOL
-                                         * want.abs())).any()):
+        tol = HMM_ATOL + HMM_RTOL * want.abs()
+        if bool((~torch.isfinite(got) | (d > tol)).any()):
             fail(f"the HMM kernel disagrees with its plain version {what}: "
                  f"max abs err {float(d.max())}")
+        used[0] = max(used[0], float((d / tol).max()))
         return float(d.max())
 
     checked, worst = [], 0.0
-    buckets = [b for _, (_, _, bs) in sorted(p["packs"].items()) for b in bs]
+    buckets = [b for _, q in sorted(p["packs"].items()) for b in q["buckets"]]
     for b in buckets:
         take = np.linspace(0, len(b.pairs) - 1, min(len(b.pairs),
                                                     HMM_CHECK_PAIRS)
@@ -1162,10 +1234,10 @@ def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
                         f"({b.lpad}, {b.mpad})")
             worst = max(worst, err)
             perm = torch.randperm(len(take), device=dev)
-            p_args = args[:5] + (args[5][perm].contiguous(),
-                                 args[6][perm].contiguous(), b.lpad)
-            d_args = args[:5] + (args[5].repeat_interleave(2),
-                                 args[6].repeat_interleave(2), b.lpad)
+            p_args = args[:3] + (args[3][perm].contiguous(),
+                                 args[4][perm].contiguous(), b.lpad)
+            d_args = args[:3] + (args[3].repeat_interleave(2),
+                                 args[4].repeat_interleave(2), b.lpad)
             g_p = hmm_kernel.hmm_score(*p_args, fwd)
             g_d = hmm_kernel.hmm_score(*d_args, fwd)
             if not (torch.equal(g_p, got[perm]) and torch.equal(
@@ -1175,33 +1247,76 @@ def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
                      "differ)")
             row += [err, round(plain_ms, 3)]
         checked.append(row)
-    table = hmm_bucket_table(p, dev, sm_clock_mhz)
-    # one launch at the path's batch size: the bucket with the most
-    # padded cells
-    b = max(buckets, key=lambda x: len(x.pairs) * x.lpad * x.mpad)
-    args, real, n_bytes = hmm_launch(p, b, b.launches()[0], dev)
-    ms = time_ms(lambda: hmm_kernel.hmm_score(*args, True), reps=3)
-    got = hmm_kernel.hmm_score(*args, True)
+    table, card_scores = hmm_launch_table(p, dev, sm_clock_mhz)
+    # the same pairs launched by the reference's buckets: identical
+    ref_scores = torch.empty_like(card_scores)
+    for b in buckets:
+        for sel in b.launches():
+            a, _, _ = hmm_launch(p, b, sel, dev)
+            ref_scores[torch.as_tensor(b.pairs[sel], device=dev)] = \
+                hmm_kernel.hmm_score(*a, True)
+    if not torch.equal(card_scores, ref_scores):
+        fail("the HMM kernel's scores under the card's plan differ from "
+             "those under the reference's buckets")
+    variants = hmm_variants(p, dev)
+    # the kernels line's entry: the card plan's largest launch (the widest
+    # pack's), its time from the per-launch table; HMM_CHECK_PAIRS of its
+    # own scores, spread over its sorted pairs, held against the plain
+    # version, which is timed on those pairs beside the kernel
+    mpad = max(p["packs"])
+    b = p["packs"][mpad]["card"]
+    row = next(r for r in table if r[0] == mpad)
+    take = np.linspace(0, len(b.pairs) - 1, min(len(b.pairs),
+                                                HMM_CHECK_PAIRS)).astype(int)
+    args, _, _ = hmm_launch(p, b, take, dev)
     want, plain_ms = timed(lambda: plain(args, True))
-    worst = max(worst, check(got, want, f"on the main batch ({b.lpad}, "
-                                        f"{b.mpad}) x {len(got)}"))
+    got = card_scores[torch.as_tensor(b.pairs[take], device=dev)]
+    worst = max(worst, check(got, want, f"on the card plan's launch at Mpad "
+                                        f"{mpad} ({len(take)} of its pairs)"))
+    sample_ms = time_ms(lambda: hmm_kernel.hmm_score(*args, True), reps=3)
+    _, real, n_bytes = hmm_launch(p, b, slice(None), dev)
     bound_ms, bound_by = hmm_bound(real, n_bytes, sm_clock_mhz)
-    entry = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+    pair_ms, _ = hmm_bound(real, n_bytes, sm_clock_mhz,
+                             HMM_MUFU_PER_CELL_PAIRWISE)
+    facts = hmm_kernel.variant_facts(args[2].threads, b.mpad)
+    entry = dict(max_abs_err=worst, ms=row[5], plain_ms=plain_ms,
+                 plain_pairs=len(take), sample_ms=sample_ms,
                  bound_ms=bound_ms, bound_by=bound_by,
-                 shape=[len(got), b.lpad, b.mpad], real_cells=real,
-                 padded_cells=len(got) * b.lpad * b.mpad,
-                 registers=hmm_kernel.library().hmm_num_regs(1),
-                 smem_bytes=hmm_kernel.library().hmm_smem_bytes(b.mpad),
-                 tol=dict(atol=HMM_ATOL, rtol=HMM_RTOL))
-    del p, args, got, want
+                 bound_ms_pairwise=pair_ms,
+                 mufu_per_cell=dict(function=HMM_MUFU_PER_CELL,
+                                    pairwise=HMM_MUFU_PER_CELL_PAIRWISE),
+                 shape=[len(b.pairs), b.lpad, b.mpad], real_cells=real,
+                 padded_cells=len(b.pairs) * b.lpad * b.mpad,
+                 threads=facts["threads"], registers=facts["registers"],
+                 smem_bytes=facts["smem_bytes"],
+                 warps_per_sm=facts["warps_per_sm"],
+                 tol=dict(atol=HMM_ATOL, rtol=HMM_RTOL), tol_used=used[0])
+    launches_ms = sum(r[5] for r in table)
+    launches_bound = sum(r[6] for r in table)
+    del p, args, got, want, card_scores, ref_scores
     torch.cuda.empty_cache()
     return dict(entry=entry, checked=dict(
         columns=["lpad", "mpad", "pairs", "checked", "fwd_max_abs_err",
                  "fwd_plain_ms", "vit_max_abs_err", "vit_plain_ms"],
-        rows=checked), per_bucket=dict(
-        columns=["lpad", "mpad", "pairs", "launches", "real_cells",
-                 "padded_cells", "ms", "bound_ms", "bound_share"],
-        rows=table))
+        rows=checked), per_launch=dict(
+        columns=HMM_LAUNCH_COLUMNS, rows=table,
+        ms=round(launches_ms, 4), bound_ms=round(launches_bound, 4),
+        bound_share=round(launches_bound / launches_ms, 4)),
+        variants=dict(columns=["mpad", "threads", "columns", "registers",
+                               "smem_bytes", "warps_per_sm", "ms", "chosen"],
+                      rows=variants))
+
+
+def hmm_card_launches(call) -> int:
+    """Launches of the card's plan (`ops/hmm.card_score_plan`) for a
+    recorded scorer call: one a pack."""
+    import numpy as np
+    from pepr_tpu_torch.ops import hmm
+    seqs, hmms, pairs = call
+    codes_np, lens_np = hmm.pack_sequences(seqs)
+    plan = hmm.card_score_plan(lens_np, np.array([h.length for h in hmms]),
+                               pairs, codes_np.shape[1])
+    return sum(len(b.launches()) for _, _, bs in plan for b in bs)
 
 
 def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
@@ -1269,6 +1384,9 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
              f"{res.selected_outgroups}")
     if len(rec.calls) != 1:
         fail(f"stage1_hmm scored {len(rec.calls)} times, expected once")
+    if launches["hmm"] != hmm_card_launches(rec.calls[0]):
+        fail(f"stage1_hmm made {launches['hmm']} HMM launches, not the "
+             f"card plan's {hmm_card_launches(rec.calls[0])}")
 
     # -- hmm_kernel: the kernel against its plain version on the path's
     # pairs
@@ -1276,8 +1394,8 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     out = hmm_kernel_phase(rec.calls[0], dev, sm_clock_mhz)
     entry = out["entry"]
     phase("hmm_kernel", seconds=round(time.time() - t, 3),
-          buckets_checked=out["checked"], per_bucket=out["per_bucket"],
-          **entry)
+          buckets_checked=out["checked"], per_launch=out["per_launch"],
+          variants=out["variants"], **entry)
     return dict(entry=entry, ingroup=ingroup, pool=pool, truth=truth)
 
 

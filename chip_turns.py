@@ -2,6 +2,9 @@
 
     python3 chip_turns.py --old DIR [--new DIR] [--out FILE]
     python3 chip_turns.py --sw-buckets DIR
+    python3 chip_turns.py --hmm --old DIR [--new DIR] [--out FILE]
+    python3 chip_turns.py --hmm-pairs FILE
+    python3 chip_turns.py --hmm-buckets DIR --pairs FILE
 
 Each checkout (the root of a tree holding `chip_smoke.py` and
 `pepr_tpu_torch/`, for example an earlier commit unpacked with `git
@@ -19,6 +22,18 @@ imported from the checkout: `--sw-buckets DIR`, which prints that table
 as one JSON line).  Prints one JSON line per turn, then a summary line,
 and writes all of it to FILE (default chip_turns.json in the working
 directory).  Exits non-zero if a run fails.
+
+`--hmm` compares the two checkouts' HMM kernels alone, on the pairs the
+HMM enhancer scores in chip_smoke.py's stage1_hmm phase: `--hmm-pairs
+FILE` runs this tree's stage-1 pipeline (use_hmm=True) on that phase's
+input up to the scorer and pickles its (sequences, profiles, pairs);
+then, in turns old, new, new, old, a process of its own for each runs
+`--hmm-buckets DIR --pairs FILE`, which times DIR's kernel on every
+launch of DIR's own plan (its chip_smoke.py's per-launch or per-bucket
+table), the first launch of the reference bucket with the most padded
+cells (the largest launch), and DIR's `profile_score_pairs` on all the
+pairs end to end, twice, and prints one JSON line.  The summary gives
+each turn's totals beside the MUFU bound of the pairs' real cells.
 """
 
 from __future__ import annotations
@@ -27,8 +42,11 @@ import argparse
 import importlib.util
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNELS = ("pruning_fwd", "pruning_bwd")
@@ -103,6 +121,160 @@ def sw_buckets_of(root: str, seed: int = 0) -> dict:
                 card=smoke.smi_line(), **table)
 
 
+def load_smoke(root: str):
+    """`root`'s chip_smoke.py as a module."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+class _Recorded(Exception):
+    pass
+
+
+def hmm_pairs(path: str, seed: int = 0) -> dict:
+    """This tree's stage1_hmm input run on the card up to the HMM scorer;
+    pickles its (sequences, profiles as field dicts, pairs) to `path`."""
+    import dataclasses
+    import torch
+    from pepr_tpu_torch.models import hmm_enhancer
+    from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
+    smoke = load_smoke(HERE)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_turns: no CUDA device")
+    ingroup, pool, _ = smoke.pepr_genomes(seed)
+    got = {}
+
+    def record(seqs, hmms, pairs, **kw):
+        got.update(seqs=list(seqs), pairs=list(pairs),
+                   hmms=[dataclasses.asdict(h) for h in hmms])
+        raise _Recorded
+
+    orig = hmm_enhancer.profile_score_pairs
+    hmm_enhancer.profile_score_pairs = record
+    t = time.time()
+    try:
+        run_stage1(ingroup, pool, Stage1Config(use_hmm=True,
+                                               outgroup_count=2),
+                   device="cuda")
+    except _Recorded:
+        pass
+    finally:
+        hmm_enhancer.profile_score_pairs = orig
+    if not got:
+        raise SystemExit("chip_turns: stage 1 never reached the HMM scorer")
+    with open(path, "wb") as fh:
+        pickle.dump(got, fh, protocol=4)
+    return dict(pairs=len(got["pairs"]), profiles=len(got["hmms"]),
+                sequences=len(got["seqs"]), seconds=round(time.time() - t, 3))
+
+
+def hmm_buckets_of(root: str, pairs_path: str) -> dict:
+    """`root`'s HMM kernel on the pickled pairs (see the module doc)."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from pepr_tpu_torch.ops import hmm, hmm_kernel
+    smoke = load_smoke(root)
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_turns: no CUDA device")
+    dev = torch.device("cuda")
+    sm_clock = float(smoke.smi_line("clocks.max.sm").split()[0])
+    with open(pairs_path, "rb") as fh:
+        got = pickle.load(fh)
+    call = (got["seqs"], [hmm.ProfileHMM(**d) for d in got["hmms"]],
+            got["pairs"])
+    hmm_kernel.library()
+    p = smoke.hmm_packs(call, dev)
+    if hasattr(smoke, "hmm_launch_table"):  # one launch a pack
+        rows, _ = smoke.hmm_launch_table(p, dev, sm_clock)
+        columns = smoke.HMM_LAUNCH_COLUMNS
+    else:  # the reference's buckets
+        rows = smoke.hmm_bucket_table(p, dev, sm_clock)
+        columns = ["lpad", "mpad", "pairs", "launches", "real_cells",
+                   "padded_cells", "ms", "bound_ms", "bound_share"]
+    ms = [r[columns.index("ms")] for r in rows]
+    buckets = [b for _, q in sorted(p["packs"].items())
+               for b in (q["buckets"] if isinstance(q, dict) else q[2])]
+    b = max(buckets, key=lambda x: len(x.pairs) * x.lpad * x.mpad)
+    args, real, _ = smoke.hmm_launch(p, b, b.launches()[0], dev)
+    largest_ms = smoke.time_ms(lambda: hmm_kernel.hmm_score(*args, True),
+                               reps=3)
+    del p, args
+    scorer_s, counts = [], {}
+    for _ in range(2):
+        hmm_kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.time()
+        hmm.profile_score_pairs(*call, device="cuda", counts=counts)
+        torch.cuda.synchronize()
+        scorer_s.append(round(time.time() - t, 4))
+    return dict(checkout=root, package=os.path.dirname(hmm.__file__),
+                card=smoke.smi_line(), sm_clock_mhz=sm_clock,
+                columns=columns, rows=rows, launches=len(rows),
+                ms=round(float(np.sum(ms)), 4), largest_launch=dict(
+                    shape=[min(b.eff, len(b.pairs)), b.lpad, b.mpad],
+                    real_cells=real, ms=largest_ms),
+                scorer_s=scorer_s, scorer_launches=dict(hmm_kernel.LAUNCHES),
+                real_cells=counts["real_cells"],
+                padded_cells=counts["padded_cells"])
+
+
+def run_mode(root: str, *flags: str) -> dict:
+    """This script with `flags` in a process of its own, in `root`;
+    returns its last JSON line."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           *flags], cwd=root, capture_output=True, text=True,
+                          timeout=RUN_TIMEOUT_S)
+    objs = json_lines(proc.stdout)
+    if proc.returncode != 0 or not objs:
+        raise SystemExit(f"chip_turns: {' '.join(flags)} in {root} failed "
+                         f"(exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    return objs[-1]
+
+
+def hmm_turns(args, smi: str) -> int:
+    """The --hmm comparison: pairs once, then old, new, new, old."""
+    tmp = tempfile.mkdtemp(prefix="hmm_pairs_")
+    try:
+        pairs_path = os.path.abspath(args.pairs or os.path.join(tmp, "pairs.pkl"))
+        made = {"pairs_file": pairs_path} if args.pairs else run_mode(
+            HERE, "--hmm-pairs", pairs_path)
+        print(json.dumps(dict(hmm_pairs=made)), flush=True)
+        turns = []
+        for label in ("old", "new", "new", "old"):
+            root = os.path.abspath(getattr(args, label))
+            res = run_mode(root, "--hmm-buckets", root, "--pairs", pairs_path)
+            turn = dict(turn=len(turns) + 1, label=label, **res)
+            print(json.dumps(turn), flush=True)
+            turns.append(turn)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    smoke = load_smoke(HERE)
+    real, clock = turns[0]["real_cells"], turns[0]["sm_clock_mhz"]
+    bounds = {n: smoke.hmm_bound(real, 0, clock, n)[0]
+              for n in (smoke.HMM_MUFU_PER_CELL,
+                        smoke.HMM_MUFU_PER_CELL_PAIRWISE)}
+    summary = dict(
+        card=smi, order=[t["label"] for t in turns], pairs=made,
+        real_cells=real, padded_cells=turns[0]["padded_cells"],
+        launches=[t["launches"] for t in turns],
+        ms=[t["ms"] for t in turns],
+        largest_launch_ms=[t["largest_launch"]["ms"] for t in turns],
+        scorer_s=[t["scorer_s"] for t in turns],
+        bound_ms={f"mufu_{n}": round(v, 4) for n, v in bounds.items()},
+        share={f"mufu_{n}": [round(v / t["ms"], 4) for t in turns]
+               for n, v in bounds.items()})
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as fh:
+        json.dump(dict(summary=summary, turns=turns), fh, indent=1)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
 def kernel_times(phases: dict) -> dict:
     """{shape: {kernel: {ms, bound_ms, plain_ms}}} of the kernels phase."""
     out = {}
@@ -131,9 +303,27 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="chip_turns.json")
     ap.add_argument("--sw-buckets", metavar="DIR",
                     help="print the per-bucket SW table of DIR's kernel")
+    ap.add_argument("--hmm", action="store_true",
+                    help="compare the checkouts' HMM kernels alone")
+    ap.add_argument("--hmm-pairs", metavar="FILE",
+                    help="pickle the stage1_hmm scorer's input to FILE")
+    ap.add_argument("--hmm-buckets", metavar="DIR",
+                    help="time DIR's HMM kernel on the pairs of --pairs")
+    ap.add_argument("--pairs", metavar="FILE",
+                    help="the pickle of --hmm-pairs (made anew if not "
+                    "given with --hmm)")
     args = ap.parse_args(argv)
     if args.sw_buckets:
         print(json.dumps(sw_buckets_of(args.sw_buckets)), flush=True)
+        return 0
+    if args.hmm_pairs:
+        print(json.dumps(hmm_pairs(args.hmm_pairs)), flush=True)
+        return 0
+    if args.hmm_buckets:
+        if not args.pairs:
+            ap.error("--hmm-buckets needs --pairs")
+        print(json.dumps(hmm_buckets_of(args.hmm_buckets, args.pairs)),
+              flush=True)
         return 0
     if not args.old:
         ap.error("--old is required")
@@ -141,6 +331,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
         check=True).stdout.strip()
+    if args.hmm:
+        return hmm_turns(args, smi)
     turns = []
     for label in ("old", "new", "new", "old"):
         res = run_checkout(getattr(args, label))

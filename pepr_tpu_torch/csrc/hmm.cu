@@ -6,7 +6,8 @@
 // profile_score_pairs).  Its plain PyTorch version is
 // ops/hmm.py::viterbi_score_batch, which follows that scan step for
 // step; this kernel computes the same function and is held against it
-// within a stated tolerance (sums in another order).
+// within a stated tolerance (sums in another order, approximate exp2 and
+// log2).
 //
 // What it computes, for pair b = (sequence s, profile h), over the
 // sequence's first L = min(lens[s], lpad) residues and the profile's
@@ -18,320 +19,446 @@
 //   vd'[k] = op(vm'[k-1] + tmd[k-1], vd'[k-1] + tdd[k-1])
 //   total  = op over every (i, k) of vm'[k]
 // entry = -log2(M); e = 0 for residue codes outside 0..19 (X, GAP, PAD);
-// every state starts at the sentinel NEG = -1e30, and at k = 0 the
-// shifted terms are NEG + NEG, as in the reference (logaddexp2 of two
-// such finite sentinels is finite: no -inf, so no NaN from inf - inf).
-// The reference walks the padded rectangle under a live mask and a
-// k < M mask; cells outside L x M never feed a real cell and add
-// exactly 0 (Forward) or nothing (Viterbi) to the total, so the kernel
-// walks the real cells only.  Returns the raw total; the wrapper
+// every state starts at the sentinel NEG = -1e30, and what enters column
+// 0 from the left is NEG, as in the reference (no -inf, so no NaN from
+// inf - inf).  Cells outside L x M never feed a real cell and add
+// nothing to the total, so the kernel walks the real cells only, and
+// lpad matters only as a cap on L.  Returns the raw total; the wrapper
 // subtracts the null correction.
 //
-// Design.  One warp scores one pair; four warps a block, no block
-// barrier.  Lane l owns C = ceil(M / 32) consecutive match states
-// [l C, l C + C) and keeps their vm, vi, vd in shared memory, stored
-// column-major over lanes (state j of lane l at j * 32 + l) so that a
-// warp's accesses never conflict on a bank; a lane touches only its own
-// words.  Per sequence position:
-//   1. each lane gets the previous lane's last state (the k - 1 feed of
-//      its first column) by __shfl_up_sync, then walks its columns left
-//      to right: vm' and vi' from the previous row, and the delete
-//      chain's affine maps f_k(x) = op(s_k, x + a_k), s_k = vm'[k-1] +
-//      tmd[k-1], a_k = tdd[k-1], composed serially ((a1, s1) then
-//      (a2, s2) is (a1 + a2, op(s2, s1 + a2)));
-//   2. a 5-step Kogge-Stone scan of the lanes' composed maps by
-//      __shfl_up_sync gives each lane the chain's value entering its
-//      first column;
-//   3. each lane walks its columns again and writes vd'.
-// Forward's total is one online log-sum-exp2 a lane over all its cells
-// (a running max and a sum of exp2), Viterbi's a running max, combined
-// over the warp at the end.  A pair's score depends only on the pair:
-// the batch and its order change nothing (the enhancer compares scores
-// with ==).
+// Design.  A group of T threads scores one pair: T = 32, a warp (four
+// pairs a block, no block barrier), for profiles up to 256 columns, and
+// a block of 128 or 512 threads above (ops/hmm_kernel.py::THREADS; other
+// configurations are built for the variants table of chip_smoke.py).
+// Thread t owns ce = ceil(M / T) consecutive match states [t ce, t ce +
+// ce) and keeps their vm, vi, vd and the seven transitions of its
+// columns in registers (arrays of C >= ce, a template parameter; the
+// loops are unrolled).  The profile comes as a walk pack
+// (ops/hmm_kernel.py::walk_pack, built once per mpad pack): column k =
+// t ce + j of profile h sits in slot j T + t, so the group's loads are
+// coalesced.  A slot is two float4s, (tmm[k-1], tim[k-1], tdm[k-1],
+// tmi[k]) and (tii[k], tmd[k], tdd[k], 0), the shifted terms 0 at k = 0
+// (what they add to is NEG), read once a pair; emissions are 21 rows of
+// slots, the 20 residues and a row of zeros, read a row ahead of their
+// use.  Per sequence position:
+//   1. each thread takes the previous thread's last old states (a
+//      shuffle; lane 0 from the warp before, through shared memory) and
+//      walks its columns: vm', vi', the total, and the delete chain from
+//      its first column on as if nothing entered there, S_j =
+//      op(vm'[k] + tmd[k], S_{j-1} + tdd[k]) (the chain into k + 1);
+//   2. the threads' maps x -> op(S, x + A), A the sum of a thread's tdd
+//      (fixed for the pair), are scanned in thread order, by shuffles
+//      in a warp and over the warps' maps through shared memory, giving
+//      x_in, the chain's value at the thread's first column (NEG at
+//      column 0); lane 31 also leaves what the next warp's lane 0 needs
+//      to compute its feed for the next position, so one barrier a
+//      position suffices (buffers by the position's parity);
+//   3. vd'[k] = op(S_{j-1}, x_in + A_{j-1}), A_j the thread's prefix
+//      sums of tdd, computed once into shared memory: the columns are
+//      independent of each other (no serial chain).
+// Forward's total is an online log-sum-exp2 a thread (a running max and
+// a sum of exp2), combined in a fixed order at the end.  A pair's score
+// depends only on the pair: the batch and its order change nothing (the
+// enhancer compares scores with ==): nothing is summed across pairs.
 //
-// What bounds it on this card: the special-function unit.  Forward
-// needs, a real cell, five logaddexp2s (three for vm', one for vi', one
-// for vd'), each an exp2 and a log, and one exp2 for the total: 11 MUFU
-// operations (chip_smoke.py's HMM_MUFU_PER_CELL), at 16 a clock on each
-// of the 132 SMs.  This design spends a sixth logaddexp2 a cell on
-// composing the delete chain's maps (step 1), work of the lane-parallel
-// scan and not of the function, so the bound leaves it out.  Bytes do
-// not bind: the packs are read from L2 (a profile's rows are reused by
-// every position of its sequences).  This first design reads the
-// transitions and emissions of a lane's columns with strided loads (a
-// lane's columns are contiguous, so a warp's 32 loads touch 32 lines)
-// and computes logaddexp2 as log1p(exp2(-|d|)) like the reference, not
-// with the approximate MUFU forms; both are left for a later change.
+// logaddexp2 runs on the special-function unit (MUFU), in bits:
+// op(a, b) = max + lg2(1 + ex2(-|a - b|)) with ex2.approx.ftz and
+// lg2.approx.ftz.  vm' keeps the reference's op(op(a, b), op(c, entry)),
+// so its rounding follows the plain version's over 4,096-row pairs.
+//
+// What bounds it on this card: MUFU results, 16 a clock on each of the
+// 132 SMs.  The function needs 9 a real cell (chip_smoke.py's
+// HMM_MUFU_PER_CELL): the match state's logaddexp2 of four terms is one
+// max, three ex2 (the max's own term is 1) and one lg2 (4), the insert's
+// and the delete's two-term ones an ex2 and a lg2 each (2 + 2), and the
+// total one ex2 (1).  This design spends 13 (the pairwise vm' 6, and the
+// lane-parallel chain is composed in step 1 and applied in step 3, a
+// logaddexp2 more than the function), so it cannot pass 9/13 of that
+// bound.  Below it: the scan's shuffles and op2s (5 + log2(T / 32) + 3
+// logaddexp2s a thread a position, heavy where ce is small), the
+// barrier, and the per-position latency of the chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define WARP 32
-#define WARPS_PER_BLOCK 4
 #define N_AA 20
+#define EMIT_ROWS 21
 #define MAX_MPAD 4096
+#define PAIR_BLOCK 128  // threads of a block of warp-wide groups
+#define XCH 8            // floats a warp leaves for the others a position
+
+// (T threads a pair, C columns a thread at most, blocks an SM for the
+// register budget), by ascending C for each T: a launch takes the first
+// with its T and C >= ceil(mpad / T)
+#define HMM_CONFIGS(X)                                                    \
+    X(32, 2, 8) X(32, 8, 4) X(64, 4, 12) X(128, 2, 8) X(128, 8, 4)        \
+    X(256, 4, 3) X(256, 16, 1) X(512, 8, 1)
 
 static constexpr float NEG = -1e30f;
-// float32(1 / ln 2), as jnp.logaddexp2 multiplies
-static constexpr float INV_LN2 = 1.44269504088896340736f;
 static constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+}
+
+// log2(1 + x), x >= 0
+__device__ __forceinline__ float lg2_1p(float x) {
+    float y;
+    asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(1.0f + x));
+    return y;
+}
 
 template <bool FORWARD>
 __device__ __forceinline__ float op2(float a, float b) {
-    if (FORWARD) {
-        return fmaxf(a, b) + INV_LN2 * log1pf(exp2f(-fabsf(a - b)));
-    } else {
-        return fmaxf(a, b);
-    }
+    if (FORWARD) return fmaxf(a, b) + lg2_1p(ex2(-fabsf(a - b)));
+    return fmaxf(a, b);
 }
 
-// shared memory of one warp: vm, vi, vd of 32 * cmax states each
-static __host__ __device__ inline int cmax_of(int mpad) {
-    return (mpad + WARP - 1) / WARP;
-}
+template <int T>
+struct Shape {
+    static constexpr int BLOCK = T == WARP ? PAIR_BLOCK : T;
+    static constexpr int GROUPS = BLOCK / T;  // pairs a block
+    static constexpr int WARPS = T / WARP;    // warps a pair
+};
 
-static inline size_t smem_bytes(int mpad) {
-    return (size_t)WARPS_PER_BLOCK * 3 * WARP * cmax_of(mpad) *
-           sizeof(float);
-}
-
-template <bool FORWARD>
-__global__ void __launch_bounds__(WARP * WARPS_PER_BLOCK)
+template <bool FORWARD, int T, int C, int MINB>
+__global__ void __launch_bounds__(Shape<T>::BLOCK, MINB)
 hmm_kernel(const int8_t* __restrict__ codes, int lmax,
-           const int* __restrict__ lens, const float* __restrict__ emit,
-           const float* __restrict__ tmm, const float* __restrict__ tmi,
-           const float* __restrict__ tmd, const float* __restrict__ tim,
-           const float* __restrict__ tii, const float* __restrict__ tdm,
-           const float* __restrict__ tdd, const int* __restrict__ m_lens,
-           int mpad, const int* __restrict__ seq_idx,
+           const int* __restrict__ lens, const float4* __restrict__ rec,
+           const float* __restrict__ emit, const int* __restrict__ m_lens,
+           int mpad, int slots, const int* __restrict__ seq_idx,
            const int* __restrict__ hmm_idx, int B, int lpad,
            float* __restrict__ out) {
-    extern __shared__ float smem[];
+    constexpr int GROUPS = Shape<T>::GROUPS, W = Shape<T>::WARPS;
+    constexpr int WS = W > 1 ? W : 1;
+    __shared__ float a_pre[Shape<T>::BLOCK * C];  // A_j, [group][j][t]
+    // by row parity, each warp's lane 31: its map (A, S) composed over
+    // the warp, and what the next warp's lane 0 needs of it for the next
+    // position's feed (vm', vi', the exclusive map (xs, xa), S_{n-2},
+    // A_{n-2})
+    __shared__ float xch[2][XCH][WS];
+    __shared__ float tots[2][WS];  // each warp's total
+
+    const int g = threadIdx.x / T;
+    const int t = threadIdx.x % T;
     const int lane = threadIdx.x & (WARP - 1);
-    const int warp = threadIdx.x / WARP;
-    const long long pair = (long long)blockIdx.x * WARPS_PER_BLOCK + warp;
-    if (pair >= B) return;  // the whole warp: no block barrier follows
-    const int cmax = cmax_of(mpad);
-    float* vm = smem + (size_t)warp * 3 * WARP * cmax;
-    float* vi = vm + WARP * cmax;
-    float* vd = vi + WARP * cmax;
+    const int warp = t / WARP;  // in the pair
+    const long long pair = (long long)blockIdx.x * GROUPS + g;
+    // a whole group returns: a warp when GROUPS > 1, else the block
+    if (pair >= B) return;
 
     const int s = seq_idx[pair];
     const int h = hmm_idx[pair];
     const int L = min(lens[s], lpad);
     const int M = min(m_lens[h], mpad);
     const float entry = -log2f(fmaxf((float)M, 1.0f));
-    const int C = (M + WARP - 1) / WARP;
-    const int k0 = lane * C;
-    const int n = max(0, min(C, M - k0));  // this lane's columns
+    const int ce = (M + T - 1) / T;
+    const int n = max(0, min(ce, M - t * ce));  // this thread's columns
+    const float4* R = rec + ((long long)h * slots + t) * 2;  // + 2 j T
+    const float* E = emit + (long long)h * EMIT_ROWS * slots + t;
+    float* Ap = a_pre + g * T * C + t;  // A_j at Ap[j T]
 
-    const int8_t* seq = codes + (long long)s * lmax;
-    const float* em = emit + (long long)h * N_AA * mpad;
-    const long long tro = (long long)h * (mpad + 1);
-    const float* Tmm = tmm + tro;
-    const float* Tmi = tmi + tro;
-    const float* Tmd = tmd + tro;
-    const float* Tim = tim + tro;
-    const float* Tii = tii + tro;
-    const float* Tdm = tdm + tro;
-    const float* Tdd = tdd + tro;
-
-    for (int j = 0; j < n; ++j) {
-        vm[j * WARP + lane] = NEG;
-        vi[j * WARP + lane] = NEG;
-        vd[j * WARP + lane] = NEG;
+    // the pair's transitions, held in registers for the whole walk, and
+    // A_j = tdd[k0] + ... + tdd[k0 + j] in shared memory
+    float t_mm[C], t_im[C], t_dm[C], t_mi[C], t_ii[C], t_md[C], t_dd[C];
+    float a_sum = 0.0f, a_prev = 0.0f;  // A_{n-1}, A_{n-2}
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+        if (j < n) {
+            const float4 q0 = __ldg(R + 2 * j * T);
+            const float4 q1 = __ldg(R + 2 * j * T + 1);
+            t_mm[j] = q0.x;
+            t_im[j] = q0.y;
+            t_dm[j] = q0.z;
+            t_mi[j] = q0.w;
+            t_ii[j] = q1.x;
+            t_md[j] = q1.y;
+            t_dd[j] = q1.z;
+            a_prev = a_sum;
+            a_sum += q1.z;
+            Ap[j * T] = a_sum;
+        }
     }
-    // running total: Forward keeps (tot_m, tot_s) with the lane's
-    // log-sum-exp2 = tot_m + log2(tot_s); Viterbi keeps the max in tot_m
+    float vm[C], vi[C], vd[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) vm[j] = vi[j] = vd[j] = NEG;
+    float lm = NEG, li = NEG, ld = NEG;  // the last column's old states
+    // lane 0: the previous warp's lane 31's, from xch (NEG at warp 0)
+    float fm = NEG, fi = NEG, fd = NEG;
+    // Forward's running total: tot_m + log2(tot_s); Viterbi's: tot_m
     float tot_m = NEG, tot_s = 0.0f;
 
+    // emissions of the current row, and of the next one, loaded a row
+    // ahead; lane l holds the code of position (i & ~31) + l
+    const int8_t* seq = codes + (long long)s * lmax;
+    float em[C], en[C];
+    int code = L > 0 ? (int)seq[min(lane, L - 1)] : 0;
+    {
+        const int c = __shfl_sync(FULL, code, 0);
+        const float* Er = E + (long long)((c >= 0 && c < N_AA) ? c : N_AA) *
+                                  slots;
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+            if (j < n) em[j] = __ldg(Er + j * T);
+    }
     for (int i = 0; i < L; ++i) {
-        const int c = seq[i];
-        const bool emits = c >= 0 && c < N_AA;
-        const float* erow = em + (emits ? c : 0) * mpad;
-
-        // the previous row's states at column k0 - 1, from the lane
-        // before (lane 0: the NEG of the reference's shift)
-        float lm = NEG, li = NEG, ld = NEG;
-        if (n > 0) {
-            const int t = (n - 1) * WARP + lane;
-            lm = vm[t];
-            li = vi[t];
-            ld = vd[t];
+        if (i + 1 < L) {
+            const int i1 = i + 1;
+            if ((i1 & (WARP - 1)) == 0)
+                code = (int)seq[min(i1 + lane, L - 1)];
+            const int c = __shfl_sync(FULL, code, i1 & (WARP - 1));
+            const float* Er = E +
+                (long long)((c >= 0 && c < N_AA) ? c : N_AA) * slots;
+#pragma unroll
+            for (int j = 0; j < C; ++j)
+                if (j < n) en[j] = __ldg(Er + j * T);
         }
+
+        // the previous row's states at column k0 - 1
         float pm = __shfl_up_sync(FULL, lm, 1);
         float pi = __shfl_up_sync(FULL, li, 1);
         float pd = __shfl_up_sync(FULL, ld, 1);
-        if (lane == 0) pm = pi = pd = NEG;
+        if (lane == 0) {
+            pm = fm;
+            pi = fi;
+            pd = fd;
+        }
 
-        // 1. vm', vi', and the composition of the chain's maps of
-        //    columns k0 + 1 .. k0 + n - 1
-        float A = 0.0f, S = NEG;  // the identity map
-        float prev_new = NEG;     // vm' of the column before
-        for (int j = 0; j < n; ++j) {
-            const int k = k0 + j;
-            const int t = j * WARP + lane;
-            const float om = vm[t], oi = vi[t], od = vd[t];
-            float t_mm = NEG, t_im = NEG, t_dm = NEG;
-            if (k > 0) {
-                t_mm = __ldg(Tmm + k - 1);
-                t_im = __ldg(Tim + k - 1);
-                t_dm = __ldg(Tdm + k - 1);
-            }
-            const float best = op2<FORWARD>(
-                op2<FORWARD>(pm + t_mm, pi + t_im),
-                op2<FORWARD>(pd + t_dm, entry));
-            const float e = emits ? __ldg(erow + k) : 0.0f;
-            const float nvm = e + best;
-            const float nvi = op2<FORWARD>(om + __ldg(Tmi + k),
-                                           oi + __ldg(Tii + k));
-            vm[t] = nvm;
-            vi[t] = nvi;
-            if (FORWARD) {
-                if (nvm > tot_m) {
-                    tot_s = tot_s * exp2f(tot_m - nvm) + 1.0f;
-                    tot_m = nvm;
-                } else {
-                    tot_s += exp2f(nvm - tot_m);
+        // 1. vm', vi', the total, and the chain with nothing entering
+        float S = NEG, sp = NEG;   // S_{j}, S_{j-1}
+        float nm = NEG, ni = NEG;  // vm', vi' of the last column walked
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            if (j < n) {
+                const float om = vm[j], oi = vi[j], od = vd[j];
+                nm = em[j] + op2<FORWARD>(
+                                 op2<FORWARD>(pm + t_mm[j], pi + t_im[j]),
+                                 op2<FORWARD>(pd + t_dm[j], entry));
+                ni = op2<FORWARD>(om + t_mi[j], oi + t_ii[j]);
+                if (FORWARD) {
+                    const float d = nm - tot_m;
+                    const float x = ex2(-fabsf(d));
+                    tot_s = d > 0.0f ? fmaf(tot_s, x, 1.0f) : tot_s + x;
                 }
-            } else {
-                tot_m = fmaxf(tot_m, nvm);
+                tot_m = fmaxf(tot_m, nm);
+                vd[j] = S;  // S_{j-1}, applied in step 3
+                sp = S;
+                S = op2<FORWARD>(nm + t_md[j], S + t_dd[j]);
+                vm[j] = nm;
+                vi[j] = ni;
+                pm = om;
+                pi = oi;
+                pd = od;
+                em[j] = en[j];
             }
-            if (j > 0) {
-                const float a = __ldg(Tdd + k - 1);
-                const float sk = prev_new + __ldg(Tmd + k - 1);
-                S = op2<FORWARD>(sk, S + a);
-                A = A + a;
-            }
-            prev_new = nvm;
-            pm = om;
-            pi = oi;
-            pd = od;
-        }
-        // the first column's map needs vm' of column k0 - 1
-        const float before = __shfl_up_sync(FULL, prev_new, 1);
-        float a0 = NEG, s0 = NEG;  // k = 0: the reference's shifted NEGs
-        if (k0 > 0 && n > 0) {
-            a0 = __ldg(Tdd + k0 - 1);
-            s0 = before + __ldg(Tmd + k0 - 1);
-        }
-        if (n > 0) {  // f_{k0} first, then the rest
-            S = op2<FORWARD>(S, s0 + A);
-            A = a0 + A;
         }
 
-        // 2. inclusive scan of the lanes' maps, then the chain's value
-        //    entering this lane (lane 0: x_{-1}, the sentinel)
+        // 2. x_in: the maps (a_sum, S) of the threads before this one,
+        //    composed in order ((A1, S1) then (A2, S2) is (A1 + A2,
+        //    op(S2, S1 + A2))) and applied to NEG
+        float A = a_sum;
+#pragma unroll
         for (int d = 1; d < WARP; d <<= 1) {
-            const float Ap = __shfl_up_sync(FULL, A, d);
-            const float Sp = __shfl_up_sync(FULL, S, d);
+            const float pa = __shfl_up_sync(FULL, A, d);
+            const float ps = __shfl_up_sync(FULL, S, d);
             if (lane >= d) {
-                S = op2<FORWARD>(S, Sp + A);
-                A = Ap + A;
+                S = op2<FORWARD>(S, ps + A);
+                A += pa;
             }
         }
-        float x = __shfl_up_sync(FULL, S, 1);
-        if (lane == 0) x = NEG;
+        float xs = __shfl_up_sync(FULL, S, 1);
+        float xa = __shfl_up_sync(FULL, A, 1);
+        if (lane == 0) {
+            xs = NEG;
+            xa = 0.0f;
+        }
+        float x_in = xs;
+        if (W > 1) {
+            // the one barrier a position: parity buffers keep a warp that
+            // runs ahead from overwriting what a slower one still reads
+            float(*x)[WS] = xch[i & 1];
+            if (lane == WARP - 1) {
+                x[0][warp] = A;
+                x[1][warp] = S;
+                x[2][warp] = nm;
+                x[3][warp] = ni;
+                x[4][warp] = xs;
+                x[5][warp] = xa;
+                x[6][warp] = sp;
+                x[7][warp] = a_prev;
+            }
+            __syncthreads();
+            // the warps' maps scanned over lanes < W, in order
+            float wa = lane < W ? x[0][lane] : 0.0f;
+            float ws = lane < W ? x[1][lane] : NEG;
+#pragma unroll
+            for (int d = 1; d < W; d <<= 1) {
+                const float pa = __shfl_up_sync(FULL, wa, d);
+                const float ps = __shfl_up_sync(FULL, ws, d);
+                if (lane >= d) {
+                    ws = op2<FORWARD>(ws, ps + wa);
+                    wa += pa;
+                }
+            }
+            const float before = __shfl_sync(FULL, ws, max(warp - 1, 0));
+            const float before2 = __shfl_sync(FULL, ws, max(warp - 2, 0));
+            if (warp > 0) {
+                x_in = op2<FORWARD>(xs, before + xa);
+                // the next position's feed: the previous warp's lane 31's
+                // last column, its vd' as that lane computes it in step 3
+                const int wp = warp - 1;
+                float xp = x[4][wp];
+                if (wp > 0) xp = op2<FORWARD>(xp, before2 + x[5][wp]);
+                fm = x[2][wp];
+                fi = x[3][wp];
+                fd = ce > 1 ? op2<FORWARD>(x[6][wp], xp + x[7][wp]) : xp;
+            }
+        }
 
-        // 3. the chain through this lane's columns
-        float pv = before;
-        for (int j = 0; j < n; ++j) {
-            const int k = k0 + j;
-            const int t = j * WARP + lane;
-            float a = NEG, sk = NEG;
-            if (k > 0) {
-                a = __ldg(Tdd + k - 1);
-                sk = pv + __ldg(Tmd + k - 1);
+        // 3. vd'
+        float lv = x_in;
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+            if (j < n) {
+                const float v =
+                    j == 0 ? x_in
+                           : op2<FORWARD>(vd[j], x_in + Ap[(j - 1) * T]);
+                vd[j] = v;
+                lv = v;
             }
-            x = op2<FORWARD>(sk, x + a);
-            vd[t] = x;
-            pv = vm[t];
         }
+        lm = nm;
+        li = ni;
+        ld = lv;
     }
 
-    // combine the lanes' totals in a fixed order
+    // combine the threads' totals in a fixed order
+    float m = tot_m;
+    for (int d = WARP / 2; d > 0; d >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(FULL, m, d));
+    float sum = 0.0f;
     if (FORWARD) {
-        float m = tot_m;
-        for (int d = WARP / 2; d > 0; d >>= 1)
-            m = fmaxf(m, __shfl_xor_sync(FULL, m, d));
-        float sum = tot_s * exp2f(tot_m - m);
+        sum = tot_s * exp2f(tot_m - m);
         for (int d = WARP / 2; d > 0; d >>= 1)
             sum += __shfl_down_sync(FULL, sum, d);
-        if (lane == 0) out[pair] = sum > 0.0f ? m + log2f(sum) : NEG;
-    } else {
-        float m = tot_m;
-        for (int d = WARP / 2; d > 0; d >>= 1)
-            m = fmaxf(m, __shfl_down_sync(FULL, m, d));
-        if (lane == 0) out[pair] = m;
     }
+    if (W > 1) {
+        if (lane == 0) {
+            tots[0][warp] = m;
+            tots[1][warp] = sum;
+        }
+        __syncthreads();
+        if (t != 0) return;
+        m = NEG;
+        for (int w = 0; w < W; ++w) m = fmaxf(m, tots[0][w]);
+        sum = 0.0f;
+        if (FORWARD)
+            for (int w = 0; w < W; ++w)
+                sum += tots[1][w] * exp2f(tots[0][w] - m);
+    } else if (lane != 0) {
+        return;
+    }
+    if (FORWARD)
+        out[pair] = sum > 0.0f ? m + log2f(sum) : NEG;
+    else
+        out[pair] = m;
 }
 
-template <bool FORWARD>
-static cudaError_t launch(const int8_t* codes, int lmax, const int* lens,
-                          const float* emit, const float* const* tr,
-                          const int* m_lens, int mpad, const int* seq_idx,
-                          const int* hmm_idx, int B, int lpad, float* out,
-                          cudaStream_t stream) {
-    const size_t smem = smem_bytes(mpad);
-    cudaError_t err = cudaFuncSetAttribute(
-        hmm_kernel<FORWARD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    const long long blocks = ((long long)B + WARPS_PER_BLOCK - 1) /
-                             WARPS_PER_BLOCK;
-    hmm_kernel<FORWARD><<<(unsigned)blocks, WARP * WARPS_PER_BLOCK, smem,
-                          stream>>>(
-        codes, lmax, lens, emit, tr[0], tr[1], tr[2], tr[3], tr[4], tr[5],
-        tr[6], m_lens, mpad, seq_idx, hmm_idx, B, lpad, out);
-    return cudaGetLastError();
+template <bool FORWARD, int T, int C, int MINB>
+static const void* kernel_of() {
+    return (const void*)hmm_kernel<FORWARD, T, C, MINB>;
+}
+
+// The kernel for `threads` a pair at width mpad, its block and C; null
+// if no configuration fits.
+static const void* find_kernel(int threads, int mpad, int forward,
+                               int* block, int* cols) {
+    if (threads < 1 || mpad < 1) return nullptr;
+    const int need = (mpad + threads - 1) / threads;
+#define HMM_TRY(T_, C_, MINB_)                                       \
+    if (threads == T_ && need <= C_) {                               \
+        *block = Shape<T_>::BLOCK;                                   \
+        *cols = C_;                                                  \
+        return forward ? kernel_of<true, T_, C_, MINB_>()            \
+                       : kernel_of<false, T_, C_, MINB_>();          \
+    }
+    HMM_CONFIGS(HMM_TRY)
+#undef HMM_TRY
+    return nullptr;
 }
 
 extern "C" {
 
 int hmm_max_mpad(void) { return MAX_MPAD; }
 
-int hmm_warps_per_block(void) { return WARPS_PER_BLOCK; }
+// C, the columns a thread holds, of the kernel for `threads` a pair at
+// width mpad; -1 if there is none.
+int hmm_columns(int threads, int mpad) {
+    int block, cols;
+    return find_kernel(threads, mpad, 1, &block, &cols) ? cols : -1;
+}
 
-long long hmm_smem_bytes(int mpad) { return (long long)smem_bytes(mpad); }
-
-// Registers per thread of the Forward (forward = 1) or Viterbi kernel,
-// or a negative CUDA error.
-int hmm_num_regs(int forward) {
+// Registers a thread, static shared memory a block, and resident warps an
+// SM of that kernel (Forward: forward = 1, else Viterbi); a negative CUDA
+// error, or -1 if there is no such kernel.
+int hmm_num_regs(int threads, int mpad, int forward) {
+    int block, cols;
+    const void* fn = find_kernel(threads, mpad, forward, &block, &cols);
+    if (!fn) return -1;
     cudaFuncAttributes at;
-    cudaError_t err = forward
-                          ? cudaFuncGetAttributes(&at, hmm_kernel<true>)
-                          : cudaFuncGetAttributes(&at, hmm_kernel<false>);
+    cudaError_t err = cudaFuncGetAttributes(&at, fn);
     return err == cudaSuccess ? at.numRegs : -(int)err;
 }
 
-// Raw bits (no null correction) of B pairs into out (B,) float32.  The
-// transitions are tmm, tmi, tmd, tim, tii, tdm, tdd, each (H, mpad + 1);
-// emit is (H, 20, mpad); codes (N, lmax) int8.  Returns a CUDA error
-// code, 0 on success.
+int hmm_smem_bytes(int threads, int mpad, int forward) {
+    int block, cols;
+    const void* fn = find_kernel(threads, mpad, forward, &block, &cols);
+    if (!fn) return -1;
+    cudaFuncAttributes at;
+    cudaError_t err = cudaFuncGetAttributes(&at, fn);
+    return err == cudaSuccess ? (int)at.sharedSizeBytes : -(int)err;
+}
+
+int hmm_warps_per_sm(int threads, int mpad, int forward) {
+    int block, cols, blocks;
+    const void* fn = find_kernel(threads, mpad, forward, &block, &cols);
+    if (!fn) return -1;
+    cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, block, 0);
+    return err == cudaSuccess ? blocks * block / WARP : -(int)err;
+}
+
+// Raw bits (no null correction) of B pairs into out (B,) float32, `threads`
+// a pair.  The walk pack: rec (H, slots, 8) and emit (H, 21, slots)
+// float32 (ops/hmm_kernel.py::walk_pack, with the same threads and mpad),
+// m_lens (H,) int32; codes (N, lmax) int8, lens (N,) int32, the index
+// vectors (B,) int32.  Returns a CUDA error code, 0 on success.
 int hmm_launch(const void* codes, int lmax, const void* lens,
-               const void* emit, const void* tmm, const void* tmi,
-               const void* tmd, const void* tim, const void* tii,
-               const void* tdm, const void* tdd, const void* m_lens,
-               int mpad, const void* seq_idx, const void* hmm_idx, int B,
-               int lpad, int forward, void* out, void* stream) {
+               const void* rec, const void* emit, const void* m_lens,
+               int mpad, int slots, const void* seq_idx,
+               const void* hmm_idx, int B, int lpad, int threads,
+               int forward, void* out, void* stream) {
     if (B < 1 || mpad < 1 || mpad > MAX_MPAD || lpad < 1 || lpad > lmax)
         return (int)cudaErrorInvalidValue;
-    const float* tr[7] = {(const float*)tmm, (const float*)tmi,
-                          (const float*)tmd, (const float*)tim,
-                          (const float*)tii, (const float*)tdm,
-                          (const float*)tdd};
-    cudaStream_t st = (cudaStream_t)stream;
-    cudaError_t err =
-        forward ? launch<true>((const int8_t*)codes, lmax, (const int*)lens,
-                               (const float*)emit, tr, (const int*)m_lens,
-                               mpad, (const int*)seq_idx,
-                               (const int*)hmm_idx, B, lpad, (float*)out, st)
-                : launch<false>((const int8_t*)codes, lmax, (const int*)lens,
-                                (const float*)emit, tr, (const int*)m_lens,
-                                mpad, (const int*)seq_idx,
-                                (const int*)hmm_idx, B, lpad, (float*)out,
-                                st);
-    return (int)err;
+    int block, cols;
+    const void* fn = find_kernel(threads, mpad, forward, &block, &cols);
+    if (!fn || slots != threads * ((mpad + threads - 1) / threads))
+        return (int)cudaErrorInvalidValue;
+    const long long groups = block / threads;
+    const long long blocks = ((long long)B + groups - 1) / groups;
+    void* args[] = {(void*)&codes, (void*)&lmax,    (void*)&lens,
+                    (void*)&rec,   (void*)&emit,    (void*)&m_lens,
+                    (void*)&mpad,  (void*)&slots,   (void*)&seq_idx,
+                    (void*)&hmm_idx, (void*)&B,     (void*)&lpad,
+                    (void*)&out};
+    cudaError_t err = cudaLaunchKernel(fn, dim3((unsigned)blocks),
+                                       dim3(block), args, 0,
+                                       (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaGetLastError();
 }
 
 const char* hmm_error_string(int code) {

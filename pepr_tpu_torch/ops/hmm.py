@@ -22,18 +22,23 @@ PyTorch version of the DP, step for step the JAX package's `lax.scan`
 (the NEG = -1e30 sentinel, pre-shifted transitions, the Kogge-Stone
 delete chain in the same doubling order, `_lse2`, the `live` mask).
 On the card `profile_score_pairs` launches the hand-written kernel of
-`ops/hmm_kernel.py` (`csrc/hmm.cu`) on the device-resident packs; on
-the CPU it gathers each chunk and runs the plain version.  There is no
-other route.
+`ops/hmm_kernel.py` (`csrc/hmm.cu`) on the device-resident packs, each
+laid out once for its walk (`walk_pack`); on the CPU it gathers each
+chunk and runs the plain version.  There is no other route.
 
-What the port keeps and cuts of the reference's batching:
-- The length buckets are kept: sequences in factor-4 buckets from 128,
-  profiles from 64, both capped at 4,096 (`p4`), so a longer sequence
-  is cut to 4,096 residues as the reference cuts it, and scores are
-  comparable pair for pair.  The batch sizes per bucket (`eff`) are
-  kept too.  The buckets exist for TPU compile time; on the card they
-  cost padded cells (the kernel walks only the real ones, and
-  `counts` reports both, so a later change can decide from the ratio).
+What the port keeps and cuts of the reference's batching
+(`score_plan`, and `card_score_plan` on the card):
+- On the CPU the length buckets are kept: sequences in factor-4 buckets
+  from 128, profiles from 64, both capped at 4,096 (`p4`), so a longer
+  sequence is cut to 4,096 residues as the reference cuts it, and
+  scores are comparable pair for pair.  The batch sizes per bucket
+  (`eff`) are kept too.  The buckets exist for TPU compile time.
+- On the card the profiles keep their mpad packs, but each pack is one
+  launch over all its pairs, lpad at the cap (a pair's score depends on
+  lpad only through it), longest pairs first: the kernel walks only
+  real cells, so the reference's buckets would only strand long pairs
+  in small launches.  `counts` still reports the reference buckets'
+  pairs and padded and real cells.
 - The reference's `BoundedDispatch(window=4)`, which bounded the
   remote TPU worker's in-flight gathered slabs, is replaced by plain
   stream ordering and one host sync per bucket: the kernel reads the
@@ -321,14 +326,18 @@ def gather_pairs(codes_all, lens_all, emit_all, trans_all, m_lens_all,
 
 
 def score_chunk(codes_all, lens_all, emit_all, trans_all, m_lens_all,
-                seq_idx, hmm_idx, lpad: int, forward: bool) -> torch.Tensor:
+                seq_idx, hmm_idx, lpad: int, forward: bool,
+                walk=None) -> torch.Tensor:
     """Raw bits (no null correction) of the pairs (seq_idx[b],
     hmm_idx[b]) from the packs: the kernel (`ops/hmm_kernel.py`) for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, on `walk`, the pack's walk pack (made here if None),
+    and the plain version for CPU tensors."""
     if codes_all.is_cuda:
-        from pepr_tpu_torch.ops.hmm_kernel import hmm_score
-        return hmm_score(codes_all, lens_all, emit_all, trans_all,
-                         m_lens_all, seq_idx, hmm_idx, lpad, forward)
+        from pepr_tpu_torch.ops import hmm_kernel
+        if walk is None:
+            walk = hmm_kernel.walk_pack(emit_all, trans_all, m_lens_all)
+        return hmm_kernel.hmm_score(codes_all, lens_all, walk, seq_idx,
+                                    hmm_idx, lpad, forward)
     codes, lens, emit, tr, m_lens = gather_pairs(
         codes_all, lens_all, emit_all, trans_all, m_lens_all, seq_idx,
         hmm_idx, lpad, emit_all.shape[2])
@@ -371,15 +380,25 @@ def pack_sequences(seqs: list[np.ndarray]):
     return codes, lens
 
 
+def p4_all(x: np.ndarray, lo: int, hi: int = MAX_BUCKET) -> np.ndarray:
+    """`p4` of every element of x."""
+    edges = [lo]
+    while edges[-1] < hi:
+        edges.append(edges[-1] * 4)
+    edges = np.asarray(edges, np.int64)
+    y = np.minimum(np.asarray(x, np.int64), hi)
+    return np.minimum(edges[np.searchsorted(edges, y)], hi)
+
+
 def pair_buckets(seq_lens: np.ndarray, hmm_lens: np.ndarray,
-                 pairs) -> dict[tuple[int, int], list[int]]:
+                 pairs) -> dict[tuple[int, int], np.ndarray]:
     """{(lpad, mpad): pair indices} in pair order."""
-    buckets: dict[tuple[int, int], list[int]] = {}
-    for k, (si, hi) in enumerate(pairs):
-        key = (p4(int(seq_lens[si]), SEQ_BUCKET0),
-               p4(int(hmm_lens[hi]), HMM_BUCKET0))
-        buckets.setdefault(key, []).append(k)
-    return buckets
+    pair_arr = np.asarray(pairs, np.int64).reshape(-1, 2)
+    lp = p4_all(seq_lens[pair_arr[:, 0]], SEQ_BUCKET0)
+    mp = p4_all(hmm_lens[pair_arr[:, 1]], HMM_BUCKET0)
+    keys = lp * (MAX_BUCKET + 1) + mp
+    return {(int(k // (MAX_BUCKET + 1)), int(k % (MAX_BUCKET + 1))):
+            np.flatnonzero(keys == k) for k in np.unique(keys)}
 
 
 @dataclass
@@ -411,9 +430,11 @@ class Bucket:
 def score_plan(seq_lens: np.ndarray, hmm_lens: np.ndarray, pairs,
                batch_size: int = 4096) -> list[tuple[int, list[int],
                                                       list[Bucket]]]:
-    """The launches of `profile_score_pairs`: [(mpad, members, buckets)]
-    by ascending mpad, `members` the profiles of that pack (in pack
-    order), `buckets` its (lpad, mpad) buckets by ascending lpad."""
+    """The reference's launches, which `profile_score_pairs` makes on the
+    CPU and reports in `counts`: [(mpad, members, buckets)] by ascending
+    mpad, `members` the profiles of that pack (in pack order), `buckets`
+    its (lpad, mpad) buckets by ascending lpad, pairs in list order,
+    launches of at most `eff` pairs."""
     pair_arr = np.asarray(pairs, np.int64).reshape(-1, 2)
     buckets = pair_buckets(seq_lens, hmm_lens, pair_arr)
     groups: dict[int, list[int]] = {}
@@ -431,9 +452,40 @@ def score_plan(seq_lens: np.ndarray, hmm_lens: np.ndarray, pairs,
             Bucket(lpad, mpad, idx, pair_arr[idx, 0].astype(np.int32),
                    local_of[pair_arr[idx, 1]],
                    eff_batch(batch_size, lpad, mpad))
-            for lpad in lpads
-            for idx in [np.asarray(buckets[(lpad, mpad)], np.int64)]]))
+            for lpad in lpads for idx in [buckets[(lpad, mpad)]]]))
     return plan
+
+
+def card_score_plan(seq_lens: np.ndarray, hmm_lens: np.ndarray, pairs,
+                    lmax: int) -> list[tuple[int, list[int], list[Bucket]]]:
+    """The card's launches: the reference's mpad packs (as `score_plan`),
+    each one bucket of all its pairs at lpad = min(MAX_BUCKET, lmax), the
+    sequence pack's width, sorted by real cells, longest first (ties in
+    list order), in one launch.  A pair's score depends on lpad only
+    through the cap, so it scores as under the reference's buckets."""
+    pair_arr = np.asarray(pairs, np.int64).reshape(-1, 2)
+    lpad = min(MAX_BUCKET, int(lmax))
+    mp_of = p4_all(hmm_lens, HMM_BUCKET0)
+    pair_mp = mp_of[pair_arr[:, 1]]
+    cells = (np.minimum(seq_lens[pair_arr[:, 0]], lpad).astype(np.int64)
+             * np.minimum(hmm_lens[pair_arr[:, 1]], pair_mp))
+    plan = []
+    for mpad in np.unique(pair_mp).tolist():
+        members = np.flatnonzero(mp_of == mpad).tolist()
+        local_of = np.zeros(len(hmm_lens), np.int32)
+        local_of[members] = np.arange(len(members), dtype=np.int32)
+        idx = np.flatnonzero(pair_mp == mpad)
+        idx = idx[np.argsort(-cells[idx], kind="stable")]
+        plan.append((mpad, members, [Bucket(
+            lpad, mpad, idx, pair_arr[idx, 0].astype(np.int32),
+            local_of[pair_arr[idx, 1]], len(idx))]))
+    return plan
+
+
+def card_plan(dev) -> bool:
+    """Whether `profile_score_pairs` takes the card's plan and kernel on
+    `dev`: a CUDA device."""
+    return dev.type == "cuda"
 
 
 def device_pack(hmms: list[ProfileHMM], mpad: int, dev):
@@ -479,28 +531,39 @@ def profile_score_pairs(seqs: list[np.ndarray], hmms: list[ProfileHMM],
     codes_all = torch.as_tensor(codes_np, device=dev)
     lens_all = torch.as_tensor(lens_np, device=dev)
     hmm_lens = np.array([h.length for h in hmms], np.int64)
+    card = card_plan(dev)
+    ref = None
+    if counts is not None or not card:
+        ref = score_plan(lens_np, hmm_lens, pairs, batch_size)
     if counts is not None:
         counts.update(pairs_by_bucket={}, padded_cells=0, real_cells=0)
+        for mpad, members, buckets in ref:
+            for b in buckets:
+                counts["pairs_by_bucket"][f"{b.lpad}x{mpad}"] = len(b.pairs)
+                counts["padded_cells"] += len(b.pairs) * b.lpad * mpad
+                counts["real_cells"] += b.real_cells(lens_np,
+                                                     hmm_lens[members])
+    plan = card_score_plan(lens_np, hmm_lens, pairs,
+                           codes_np.shape[1]) if card else ref
 
-    for mpad, members, buckets in score_plan(lens_np, hmm_lens, pairs,
-                                             batch_size):
-        pack, m_lens_np = device_pack([hmms[i] for i in members], mpad, dev)
+    for mpad, members, buckets in plan:
+        pack, _ = device_pack([hmms[i] for i in members], mpad, dev)
+        walk = None
+        if card:
+            from pepr_tpu_torch.ops.hmm_kernel import walk_pack
+            walk = walk_pack(*pack)
         for b in buckets:
             t0 = time.time()
             si_all = torch.as_tensor(b.seq_idx, device=dev)
             hi_all = torch.as_tensor(b.hmm_idx, device=dev)
             res = [score_chunk(codes_all, lens_all, *pack, si_all[sel],
-                               hi_all[sel], b.lpad, forward)
+                               hi_all[sel], b.lpad, forward, walk=walk)
                    for sel in b.launches()]
             # one host sync per bucket
             out[b.pairs] = torch.cat(res).cpu().numpy()
-            if counts is not None:
-                counts["pairs_by_bucket"][f"{b.lpad}x{mpad}"] = len(b.pairs)
-                counts["padded_cells"] += len(b.pairs) * b.lpad * mpad
-                counts["real_cells"] += b.real_cells(lens_np, m_lens_np)
             log.info("profile scoring bucket (%d,%d): %d pairs in %.2fs",
                      b.lpad, mpad, len(b.pairs), time.time() - t0)
-        del pack
+        del pack, walk
     if null_per_col:
         m_arr = hmm_lens[np.asarray(pairs, np.int64).reshape(-1, 2)[:, 1]]
         return out - null_per_col * m_arr.astype(np.float32)

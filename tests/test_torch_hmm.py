@@ -15,6 +15,7 @@ import functools
 import importlib.util
 import os
 import pickle
+import re
 
 import numpy as np
 import pytest
@@ -188,6 +189,24 @@ def test_long_sequence_is_cut_at_4096():
             ((128, 64), (512, 1024), (4096, 4096))] == [4096, 4096, 512]
 
 
+def test_buckets_of_arrays_match_p4():
+    """`p4_all` is `p4` element by element, and `pair_buckets` keeps each
+    bucket's pairs in pair order."""
+    x = np.arange(0, 9000, 7)
+    for lo in (hmm.SEQ_BUCKET0, hmm.HMM_BUCKET0):
+        assert hmm.p4_all(x, lo).tolist() == [hmm.p4(int(v), lo) for v in x]
+    rng = np.random.default_rng(19)
+    seq_lens, hmm_lens = rng.integers(1, 5000, 50), rng.integers(1, 5000, 9)
+    pairs = list(zip(rng.integers(0, 50, 400), rng.integers(0, 9, 400)))
+    want: dict = {}
+    for k, (si, hi) in enumerate(pairs):
+        want.setdefault((hmm.p4(int(seq_lens[si]), hmm.SEQ_BUCKET0),
+                         hmm.p4(int(hmm_lens[hi]), hmm.HMM_BUCKET0)),
+                        []).append(k)
+    got = hmm.pair_buckets(seq_lens, hmm_lens, pairs)
+    assert {k: v.tolist() for k, v in got.items()} == want
+
+
 def test_profile_score_pairs_refuses_what_is_not_ported(profiles):
     hmms, bases = profiles
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -207,125 +226,196 @@ def test_profile_score_pairs_refuses_what_is_not_ported(profiles):
 
 F32 = np.float32
 NEG = F32(hmm.NEG)
-# the kernel's logaddexp2: max + log1p(exp2(-|a - b|)) times
-# float32(1 / ln 2), as jnp.logaddexp2 computes it
-INV_LN2 = F32(1.0 / np.log(2.0))
+WARP = 32
 
 
-def _op(a, b, forward):
-    a, b = F32(a), F32(b)
-    if forward:
-        return F32(max(a, b) + INV_LN2 *
-                   F32(np.log1p(np.exp2(F32(-abs(F32(a - b)))))))
-    return max(a, b)
+def _op2(a, b, forward):
+    """csrc/hmm.cu's op2 on float32 arrays: max + lg2(1 + ex2(-|a - b|))
+    (the card's ex2/lg2 are approximate; numpy's float32 exp2/log2 stand
+    in for them)."""
+    if not forward:
+        return np.maximum(a, b)
+    return np.maximum(a, b) + np.log2(F32(1) + np.exp2(-np.abs(a - b)))
 
 
-def emulate_kernel(seq, L, emit, tr, M, forward, W=32):
-    """csrc/hmm.cu's walk of one pair in float32 numpy: lane l owns the
-    columns [l C, l C + C), C = ceil(M / 32); per position the lanes
-    compute vm', vi' and compose their columns' delete-chain maps, a
-    Kogge-Stone scan over the lanes' maps gives each lane its chain
-    input, and a second walk writes vd'; totals per lane (an online
-    log-sum-exp2, or a max), combined at the end."""
-    tmm, tmi, tmd, tim, tii, tdm, tdd = (tr[k] for k in hmm.TRANSITIONS)
+def _op4(a, b, c, d, forward):
+    """The match state's op(op(a, b), op(c, d)), as the reference and the
+    kernel take it."""
+    return _op2(_op2(a, b, forward), _op2(c, d, forward), forward)
+
+
+def _scan(A, S, forward):
+    """Inclusive Kogge-Stone scan of maps (A, S) over the last axis, as
+    the kernel's shuffles compose them."""
+    A, S = A.copy(), S.copy()
+    d = 1
+    while d < A.shape[-1]:
+        A0, S0 = A.copy(), S.copy()
+        S[..., d:] = _op2(S0[..., d:], S0[..., :-d] + A0[..., d:], forward)
+        A[..., d:] = A0[..., d:] + A0[..., :-d]
+        d *= 2
+    return A, S
+
+
+def emulate_walk(seq, L, rec, em, M, T, forward):
+    """csrc/hmm.cu's walk of one pair in float32 numpy, vectorised over
+    the group's T threads, read from the profile's walk pack (rec
+    (slots, 8), em (21, slots)): thread t owns columns [t ce, t ce + ce);
+    per position each thread walks vm', vi', its total and the delete
+    chain with nothing entering, the threads' maps are scanned (by warps,
+    then over the warps' maps), and vd' = op(S_{j-1}, x_in + A_{j-1});
+    totals per thread, combined by warp (a max, a shuffle-down sum) and
+    then over warps in order."""
+    W = T // WARP
+    ce = -(-M // T)
+    t = np.arange(T)
+    n = np.clip(M - t * ce, 0, ce)
     entry = F32(-np.log2(max(F32(M), F32(1))))
-    C = (M + W - 1) // W
-    k0 = [l * C for l in range(W)]
-    n = [max(0, min(C, M - k)) for k in k0]
-    vm = np.full(M, NEG, F32)
+    slot = [j * T + t for j in range(ce)]
+    Ap = np.zeros((ce, T), F32)
+    a_sum = np.zeros(T, F32)
+    for j in range(ce):
+        a_sum = np.where(j < n, a_sum + rec[slot[j], 6], a_sum)
+        Ap[j] = a_sum
+    vm = np.full((ce, T), NEG, F32)
     vi, vd = vm.copy(), vm.copy()
-    tot_m, tot_s = [NEG] * W, [F32(0)] * W
+    last = np.full((3, T), NEG, F32)
+    tot_m, tot_s = np.full(T, NEG, F32), np.zeros(T, F32)
     for i in range(L):
         c = int(seq[i])
-        emits = 0 <= c < 20
-        last = [(vm[k0[l] + n[l] - 1], vi[k0[l] + n[l] - 1],
-                 vd[k0[l] + n[l] - 1]) if n[l] else (NEG, NEG, NEG)
-                for l in range(W)]
-        new_vm, new_vi = vm.copy(), vi.copy()
-        A, S, prev_new = [F32(0)] * W, [NEG] * W, [NEG] * W
-        for l in range(W):
-            pm, pi, pd = last[l - 1] if l else (NEG, NEG, NEG)
-            for j in range(n[l]):
-                k = k0[l] + j
-                om, oi, od = vm[k], vi[k], vd[k]
-                t = (NEG, NEG, NEG) if k == 0 else (tmm[k - 1], tim[k - 1],
-                                                   tdm[k - 1])
-                best = _op(_op(F32(pm + t[0]), F32(pi + t[1]), forward),
-                           _op(F32(pd + t[2]), entry, forward), forward)
-                nvm = F32((emit[c, k] if emits else F32(0)) + best)
-                new_vm[k] = nvm
-                new_vi[k] = _op(F32(om + tmi[k]), F32(oi + tii[k]), forward)
-                if forward:
-                    if nvm > tot_m[l]:
-                        tot_s[l] = F32(tot_s[l] * np.exp2(F32(tot_m[l] - nvm))
-                                       + F32(1))
-                        tot_m[l] = nvm
-                    else:
-                        tot_s[l] = F32(tot_s[l] + np.exp2(F32(nvm - tot_m[l])))
-                else:
-                    tot_m[l] = max(tot_m[l], nvm)
-                if j > 0:
-                    S[l] = _op(F32(prev_new[l] + tmd[k - 1]),
-                               F32(S[l] + tdd[k - 1]), forward)
-                    A[l] = F32(A[l] + tdd[k - 1])
-                prev_new[l] = nvm
-                pm, pi, pd = om, oi, od
-        before = [prev_new[0]] + prev_new[:-1]
-        for l in range(W):
-            if n[l]:
-                a0, s0 = (NEG, NEG) if k0[l] == 0 else (
-                    tdd[k0[l] - 1], F32(before[l] + tmd[k0[l] - 1]))
-                S[l] = _op(S[l], F32(s0 + A[l]), forward)
-                A[l] = F32(a0 + A[l])
-        d = 1
-        while d < W:
-            A0, S0 = A[:], S[:]
-            for l in range(d, W):
-                S[l] = _op(S0[l], F32(S0[l - d] + A0[l]), forward)
-                A[l] = F32(A0[l - d] + A0[l])
-            d *= 2
-        xin = [NEG] + S[:-1]
-        vm, vi = new_vm, new_vi
-        for l in range(W):
-            x, pv = xin[l], before[l]
-            for j in range(n[l]):
-                k = k0[l] + j
-                a, sk = (NEG, NEG) if k == 0 else (tdd[k - 1],
-                                                   F32(pv + tmd[k - 1]))
-                x = _op(sk, F32(x + a), forward)
-                vd[k] = x
-                pv = vm[k]
-    if forward:
-        m = max(tot_m)
-        s = F32(sum(F32(ts * np.exp2(F32(tm - m)))
-                    for ts, tm in zip(tot_s, tot_m)))
-        return F32(m + np.log2(s)) if s > 0 else NEG
-    return max(tot_m)
+        row = c if 0 <= c < 20 else 20
+        pm, pi, pd = (np.concatenate([[NEG], x[:-1]]).astype(F32)
+                      for x in last)
+        S = np.full(T, NEG, F32)
+        nm, ni = S.copy(), S.copy()
+        for j in range(ce):
+            on = j < n
+            q, e = rec[slot[j]], em[row, slot[j]]
+            om, oi, od = vm[j].copy(), vi[j].copy(), vd[j].copy()
+            m_ = e + _op4(pm + q[:, 0], pi + q[:, 1], pd + q[:, 2], entry,
+                          forward)
+            i_ = _op2(om + q[:, 3], oi + q[:, 4], forward)
+            if forward:
+                d = m_ - tot_m
+                x = np.exp2(-np.abs(d))
+                tot_s = np.where(on, np.where(d > 0, tot_s * x + F32(1),
+                                              tot_s + x), tot_s)
+            tot_m = np.where(on, np.maximum(tot_m, m_), tot_m)
+            vd[j] = np.where(on, S, od)
+            S = np.where(on, _op2(m_ + q[:, 5], S + q[:, 6], forward), S)
+            vm[j], vi[j] = np.where(on, m_, om), np.where(on, i_, oi)
+            nm, ni = np.where(on, m_, nm), np.where(on, i_, ni)
+            pm, pi, pd = (np.where(on, o, p) for o, p in ((om, pm), (oi, pi),
+                                                           (od, pd)))
+        A, Sw = _scan(a_sum.reshape(W, WARP), S.reshape(W, WARP), forward)
+        xs = np.concatenate([np.full((W, 1), NEG, F32), Sw[:, :-1]], 1)
+        xa = np.concatenate([np.zeros((W, 1), F32), A[:, :-1]], 1)
+        _, ws = _scan(A[:, -1], Sw[:, -1], forward)
+        before = np.concatenate([[NEG], ws[:-1]]).astype(F32)
+        x_in = np.where(np.arange(W)[:, None] > 0,
+                        _op2(xs, before[:, None] + xa, forward), xs).ravel()
+        lv = x_in.copy()
+        for j in range(ce):
+            on = j < n
+            v = x_in if j == 0 else _op2(vd[j], x_in + Ap[j - 1], forward)
+            vd[j] = np.where(on, v, vd[j])
+            lv = np.where(on, v, lv)
+        last = np.stack([nm, ni, lv])
+    m = tot_m.reshape(W, WARP).max(1)
+    if not forward:
+        return F32(m.max())
+    s = (tot_s * np.exp2(tot_m - np.repeat(m, WARP))).reshape(W, WARP)
+    for d in (16, 8, 4, 2, 1):
+        s[:, :WARP - d] = s[:, :WARP - d] + s[:, d:]
+    mm, ss = F32(m.max()), F32(0)
+    for w in range(W):
+        ss = F32(ss + s[w, 0] * np.exp2(F32(m[w] - mm)))
+    return F32(mm + np.log2(ss)) if ss > 0 else NEG
+
+
+def _emulated_against_plain(rng, M, L, T, forward, mpad, gaps=0.1):
+    """A profile built from a seeded M-column MSA (M match states when
+    `gaps` is 0), a sequence half its consensus: the emulated walk of T
+    threads against the plain version."""
+    aln, base = _msa(rng, M, n=5, gaps=gaps)
+    h = hmm.build_profile_hmm(aln)
+    M = h.length
+    emit, fields, ml = hmm.pack_profiles([h], mpad)
+    seq = np.concatenate([base[:L // 2], rng.integers(0, 25, L - L // 2)
+                          ]).astype(np.int8)[:L]
+    codes = np.full((1, 128), PAD, np.int8)
+    codes[0, :len(seq)] = seq
+    trans = [torch.as_tensor(fields[k]) for k in hmm.TRANSITIONS]
+    want = hmm.viterbi_score_batch(
+        torch.as_tensor(codes), torch.tensor([len(seq)]),
+        torch.as_tensor(emit), *trans, torch.as_tensor(ml), forward=forward)
+    walk = hmm_kernel.walk_pack(torch.as_tensor(emit), trans,
+                                torch.as_tensor(ml), threads=T)
+    got = emulate_walk(seq, len(seq), walk.rec[0].numpy(),
+                       walk.emit[0].numpy(), M, T, forward)
+    _close([got], want.numpy())
 
 
 @pytest.mark.parametrize("forward", [True, False])
 def test_kernel_walk_emulation_matches_plain(forward):
-    """Profiles of 1, 20, 33, 64 and 97 columns (fewer columns than
-    lanes, one a lane, ragged last lanes, idle lanes), sequences with X
-    and PAD codes."""
+    """The warp's walk (32 threads a pair) on profiles of 1, 20, 33, 64
+    and 97 columns (fewer columns than lanes, one a lane, ragged last
+    lanes, idle lanes), sequences with X and PAD codes."""
     rng = np.random.default_rng(16)
     for M, L in ((1, 8), (20, 40), (33, 25), (64, 50), (97, 60)):
-        aln, base = _msa(rng, M, n=5)
-        h = hmm.build_profile_hmm(aln)
-        emit, fields, ml = hmm.pack_profiles([h], 128)
-        seq = np.concatenate([base[:L // 2], rng.integers(0, 25, L - L // 2)
-                              ]).astype(np.int8)[:L]
-        codes = np.full((1, 128), PAD, np.int8)
-        codes[0, :len(seq)] = seq
-        want = hmm.viterbi_score_batch(
-            torch.as_tensor(codes), torch.tensor([len(seq)]),
-            torch.as_tensor(emit),
-            *[torch.as_tensor(fields[k]) for k in hmm.TRANSITIONS],
-            torch.as_tensor(ml), forward=forward)
-        got = emulate_kernel(seq, len(seq), emit[0],
-                             {k: fields[k][0] for k in hmm.TRANSITIONS},
-                             h.length, forward)
-        _close([got], want.numpy())
+        _emulated_against_plain(rng, M, L, 32, forward, 128)
+
+
+@pytest.mark.parametrize("forward", [True, False])
+@pytest.mark.parametrize("T,M", [(32, 31), (32, 32), (32, 33), (32, 127),
+                                 (32, 128), (32, 129), (128, 127),
+                                 (128, 128), (128, 129), (128, 1025),
+                                 (256, 1025), (64, 129), (512, 1025),
+                                 (512, 4096)])
+def test_walk_emulation_at_boundaries(T, M, forward):
+    """The warp's and the block's walks at and around lane and warp
+    boundaries (M of 31-33 and 127-129 columns, so ce and the idle
+    threads change there), at the smallest profile of the widest pack
+    (1,025 columns) and at its full width on the widest pack's 512
+    threads, within 1e-4 bits + 1e-6 relative of the plain version."""
+    mpad = hmm.p4(M, hmm.HMM_BUCKET0)
+    rng = np.random.default_rng(1000 + M + T)
+    _emulated_against_plain(rng, M, 12 if M > 500 else 30, T, forward, mpad,
+                            gaps=0.0)
+
+
+@pytest.mark.parametrize("T", [32, 64, 128, 256])
+def test_walk_pack_gathers_back_to_the_pack(profiles, T):
+    """Every (h, k) of a pack sits in exactly one slot of its walk pack,
+    slot j T + t for k = t ce + j, with the shifted and unshifted
+    transitions of column k (0 for the shifted ones at k = 0), its
+    emissions and a zero row; every other slot is zero."""
+    hmms, _ = profiles
+    mpad = 512 if T < 128 else 1024
+    emit, fields, ml = hmm.pack_profiles(hmms, mpad)
+    trans = [torch.as_tensor(fields[k]) for k in hmm.TRANSITIONS]
+    walk = hmm_kernel.walk_pack(torch.as_tensor(emit), trans,
+                                torch.as_tensor(ml), threads=T)
+    slots = T * -(-mpad // T)
+    assert walk.rec.shape == (len(hmms), slots, 8) and walk.threads == T
+    assert walk.emit.shape == (len(hmms), 21, slots)
+    f = {k: fields[k] for k in hmm.TRANSITIONS}
+    rec, em = walk.rec.numpy(), walk.emit.numpy()
+    for h, M in enumerate(ml):
+        ce = -(-int(M) // T)
+        used = np.zeros(slots, bool)
+        for k in range(M):
+            sl = (k % ce) * T + k // ce
+            assert not used[sl]
+            used[sl] = True
+            prev = [f[x][h, k - 1] if k else 0.0 for x in ("tmm", "tim",
+                                                            "tdm")]
+            here = [f[x][h, k] for x in ("tmi", "tii", "tmd", "tdd")]
+            assert np.array_equal(rec[h, sl], np.array(prev + here + [0.0],
+                                                       np.float32))
+            assert np.array_equal(em[h, :20, sl], emit[h, :, k])
+        assert not em[h, 20].any()
+        assert not rec[h, ~used].any() and not em[h, :, ~used].any()
 
 
 # -- the wrapper ----------------------------------------------------------
@@ -340,9 +430,19 @@ def test_launcher_matches_declared_argtypes():
     src = open(hmm_kernel.SOURCE).read()
     assert "hmm" in _cuda.SOURCES and "torch/extension.h" not in src
     assert f"#define MAX_MPAD {hmm_kernel.MAX_MPAD}" in src
+    assert f"#define EMIT_ROWS {hmm_kernel.EMIT_ROWS}" in src
     assert "pepr_tpu/ops/hmm.py:206 viterbi_segment" in src
     assert "atomic" not in src  # a pair's score depends only on the pair
     assert _cuda.lib_path("hmm").startswith(_cuda.BUILD_DIR)
+    # every pack width the scorer makes has a kernel for its threads
+    block = src[src.index("#define HMM_CONFIGS(X)"):]
+    block = block[:block.index("static constexpr")]
+    configs = [tuple(map(int, m)) for m in
+               re.findall(r"X\((\d+), (\d+), (\d+)\)", block)]
+    assert len(configs) >= 4
+    for mpad in (64, 256, 1024, 4096, 512, 2048):
+        threads = hmm_kernel.threads_for(mpad)
+        assert any(t == threads and c * t >= mpad for t, c, _ in configs)
 
 
 def _packs(profiles, sequences, dev="cpu"):
@@ -371,57 +471,139 @@ def test_cpu_route_takes_the_plain_version(profiles, sequences, monkeypatch):
                                                     forward=True))
     monkeypatch.undo()
     hmm_kernel.reset_launch_counts()
+    walk = hmm_kernel.walk_pack(*packs[2:])
     with pytest.raises(ValueError, match="CUDA"):
-        hmm_kernel.hmm_score(*packs, si, hi, 2048, True)
+        hmm_kernel.hmm_score(*packs[:2], walk, si, hi, 2048, True)
     assert hmm_kernel.LAUNCHES == {"hmm": 0}
 
 
+def _pairs(n_seqs, n_hmms, seed, n=40):
+    rng = np.random.default_rng(seed)
+    pairs = [(int(a), int(b)) for a, b in zip(rng.integers(0, n_seqs, n),
+                                              rng.integers(0, n_hmms, n))]
+    return pairs + [pairs[0], (n_seqs - 1, n_hmms - 1)]
+
+
+@pytest.mark.parametrize("forward", [True, False])
+def test_card_plan_scores_each_pair_once_as_the_buckets(profiles, sequences,
+                                                        forward):
+    """The card's plan (`card_score_plan` at the sequence pack's width): one
+    launch a pack, lpad at the cap, every pair exactly once, longest
+    first; scoring it with the plain version on the CPU gives exactly the
+    reference buckets' scores (lpad enters only as the cap on L)."""
+    hmms, _ = profiles
+    pairs = _pairs(len(sequences), len(hmms), 18)
+    codes, lens = hmm.pack_sequences(sequences)
+    hmm_lens = np.array([h.length for h in hmms])
+    plan = hmm.card_score_plan(lens, hmm_lens, pairs, codes.shape[1])
+    ref = hmm.score_plan(lens, hmm_lens, pairs)
+    assert [(m, ms) for m, ms, _ in plan] == [(m, ms) for m, ms, _ in ref]
+    got = np.full(len(pairs), np.nan, np.float32)
+    seen = []
+    for mpad, members, buckets in plan:
+        assert len(buckets) == 1 and len(buckets[0].launches()) == 1
+        b = buckets[0]
+        assert b.lpad == min(hmm.MAX_BUCKET, codes.shape[1])
+        cells = [b.real_cells(lens, hmm_lens[members], slice(i, i + 1))
+                 for i in range(len(b.pairs))]
+        keys = [(-c, int(k)) for c, k in zip(cells, b.pairs)]
+        assert keys == sorted(keys)  # longest first, ties in list order
+        seen += list(b.pairs)
+        pack, _ = hmm.device_pack([hmms[i] for i in members], mpad, "cpu")
+        got[b.pairs] = hmm.score_chunk(
+            torch.as_tensor(codes), torch.as_tensor(lens), *pack,
+            torch.as_tensor(b.seq_idx), torch.as_tensor(b.hmm_idx), b.lpad,
+            forward).numpy()
+    assert sorted(seen) == list(range(len(pairs)))
+    want = hmm.profile_score_pairs(sequences, hmms, pairs, device="cpu",
+                                   null_per_col=0.0, algorithm="forward"
+                                   if forward else "viterbi")
+    assert np.array_equal(got, want)
+
+
+def test_card_branch_plans_the_reference_buckets_only_for_counts(
+        profiles, sequences, monkeypatch):
+    """On the card profile_score_pairs launches the card plan alone; it
+    cuts the reference's buckets only when `counts` asks for them."""
+    hmms, _ = profiles
+    pairs = _pairs(len(sequences), len(hmms), 19)
+    ref_plan = hmm.score_plan
+    made = []
+
+    def score_plan(*a, **k):
+        made.append(1)
+        return ref_plan(*a, **k)
+
+    def chunk(codes, lens, emit, trans, m_lens, si, hi, lpad, forward,
+              walk=None):
+        return torch.zeros(len(si))
+
+    monkeypatch.setattr(hmm, "score_plan", score_plan)
+    monkeypatch.setattr(hmm, "score_chunk", chunk)
+    monkeypatch.setattr(hmm, "card_plan", lambda dev: True)
+    hmm.profile_score_pairs(sequences, hmms, pairs, device="cpu")
+    assert not made
+    counts: dict = {}
+    hmm.profile_score_pairs(sequences, hmms, pairs, device="cpu",
+                            counts=counts)
+    assert made == [1]
+    assert sum(counts["pairs_by_bucket"].values()) == len(pairs)
+
 
 def test_smoke_launches_are_the_scorers(profiles, sequences, monkeypatch):
-    """chip_smoke.py's per-bucket table (`hmm_bucket_table`, on the packs
-    of `hmm_packs`) launches the kernel on the very chunks that
-    profile_score_pairs gives it: the same packs, index vectors and
-    lpad, launch for launch, in one order; its pairs and cells are the
-    scorer's counts.  On the CPU a recorder stands in for the kernel and
-    a fixed time for the CUDA events."""
+    """chip_smoke.py's per-launch table (`hmm_launch_table`, on the packs
+    of `hmm_packs`) launches the kernel on the very launches that
+    profile_score_pairs makes on the card (its card branch, taken here on
+    the CPU with a recorder standing in for the kernel): the same walk
+    packs, index vectors and lpad, launch for launch, in one order, one a
+    pack, every pair once; its cells are the scorer's counts, which are
+    the reference buckets'.  A fixed time stands in for the CUDA
+    events."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     hmms, _ = profiles
     rng = np.random.default_rng(17)
-    # 4,100 pairs in the (128, 64) bucket: two launches of at most 4,096
+    # 4,100 pairs in the (128, 64) bucket: two reference launches
     pairs = [(0, 0)] * 4100 + [(int(a), int(b)) for a, b in zip(
         rng.integers(0, len(sequences), 300), rng.integers(0, len(hmms), 300))]
     seen = {"table": [], "main": []}
 
-    def record(key):
-        def launch(codes, lens, emit, trans, m_lens, si, hi, lpad, forward):
-            seen[key].append((emit, trans, m_lens, si, hi, lpad, forward))
-            return torch.zeros(len(si))
-        return launch
+    def launch(codes, lens, walk, si, hi, lpad, forward):
+        seen["table"].append((walk, si, hi, lpad, forward))
+        return torch.zeros(len(si))
 
-    monkeypatch.setattr(hmm_kernel, "hmm_score", record("table"))
-    monkeypatch.setattr(smoke, "time_ms", lambda fn, reps, warmup=1:
-                        (fn(), 2.0)[1])
+    def chunk(codes, lens, emit, trans, m_lens, si, hi, lpad, forward,
+              walk=None):
+        seen["main"].append((walk, si, hi, lpad, forward))
+        return torch.zeros(len(si))
+
+    monkeypatch.setattr(hmm_kernel, "hmm_score", launch)
+    monkeypatch.setattr(smoke, "timed", lambda fn: (fn(), 2.0))
     cpu = torch.device("cpu")
-    rows = smoke.hmm_bucket_table(smoke.hmm_packs((sequences, hmms, pairs),
-                                                  cpu), cpu, 1980.0)
-    monkeypatch.setattr(hmm, "score_chunk", record("main"))
+    p = smoke.hmm_packs((sequences, hmms, pairs), cpu)
+    rows, _ = smoke.hmm_launch_table(p, cpu, 1980.0)
+    monkeypatch.setattr(hmm, "score_chunk", chunk)
+    monkeypatch.setattr(hmm, "card_plan", lambda dev: True)
     counts: dict = {}
     hmm.profile_score_pairs(sequences, hmms, pairs, device="cpu",
                             counts=counts)
-    assert len(seen["table"]) == len(seen["main"]) == sum(r[3] for r in rows)
+    assert len(seen["table"]) == len(seen["main"]) == len(rows) == len(
+        p["packs"]) == smoke.hmm_card_launches((sequences, hmms, pairs))
     for a, b in zip(seen["table"], seen["main"]):
-        assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
-        assert all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
-        assert torch.equal(a[3], b[3]) and torch.equal(a[4], b[4])
-        assert a[5:] == b[5:]
-    assert {f"{r[0]}x{r[1]}": r[2] for r in rows} == counts["pairs_by_bucket"]
-    assert len(rows) >= 3 and max(r[3] for r in rows) == 2
-    assert sum(r[4] for r in rows) == counts["real_cells"]
-    assert sum(r[5] for r in rows) == counts["padded_cells"]
-    assert all(r[6] == 2.0 * r[3] and r[7] > 0 for r in rows)
+        assert torch.equal(a[0].rec, b[0].rec) and torch.equal(a[0].emit,
+                                                               b[0].emit)
+        assert a[0].threads == b[0].threads and a[0].mpad == b[0].mpad
+        assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        assert a[3:] == b[3:]
+    assert sum(r[2] for r in rows) == len(pairs)
+    assert [r[0] for r in rows] == sorted(p["packs"])
+    assert len(counts["pairs_by_bucket"]) >= 3
+    assert sum(counts["pairs_by_bucket"].values()) == len(pairs)
+    assert sum(r[3] for r in rows) == counts["real_cells"]
+    assert all(r[5] == 2.0 and r[6] > 0 for r in rows)
+
 
 @pytest.fixture
 def cuda_device():
