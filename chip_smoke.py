@@ -35,7 +35,8 @@ Phases, each printing one JSON line with the elapsed seconds:
            the pool genome must be selected and at least half of the
            families in >= 2 ingroup genomes recovered as clean groups
   profile_stage1  torch.profiler's device time by kernel over a second
-           full stage-1 run, so the stage1 time carries no profiler
+           stage-1 run on the first PROFILE_S1_INGROUP ingroup genomes
+           and the pool, so the stage1 time carries no profiler
   small_hmm  run_stage1(use_hmm=True) on a small input on the card and on
            the CPU: identical groups and selected outgroups
   stage1_hmm  run_stage1(use_hmm=True, outgroup_count=2) at the
@@ -66,8 +67,9 @@ Phases, each printing one JSON line with the elapsed seconds:
            with times over repeated launches, at the slice shape (4
            trees x 8,192 sites), at the shapes run_stage2_aligned gives
            the kernels on the true alignments: the full tree (1 x 64,433
-           sites), a block of jackknife replicates on their compacted
-           per-replicate codes, and a batch of SPR candidates scored
+           sites), a block of 64 jackknife replicates on their
+           compacted per-replicate codes (all against the plain
+           version), and a batch of SPR candidates scored
            against the full width; and a tree of 8,191 nodes (the
            kernels' limit) on 256 random columns;
            at each shape the nodes in the spill tiers as planned, and the
@@ -104,7 +106,31 @@ Phases, each printing one JSON line with the elapsed seconds:
            by the kernel within 1e-5 of the plain path, and both kernels
            against their plain versions at the run's own shapes (its full
            tree over the trimmed columns, its first block of jackknife
-           replicates)
+           replicates, PLAIN_REP_TREES of them against the plain
+           version); the float64 plain LL and gradient are computed too,
+           and the kernel's must be within the same tolerances of them
+  stage2_options  stage 2's other options (option_runs) on the data
+           phase's 53 taxa, the pruning launch counts reset just before
+           and read just after: A, run_stage2_aligned on the true
+           alignments with the congruence filter (365 of 405 families
+           kept), matrix evaluation over every registered model, the
+           parsimony_bl full tree and OPTION_REPS nj jackknife replicates;
+           B, on A's concatenation, OPTION_REPS fast_ml bootstrap
+           replicates, the NJ tree, and a shallow ml_tree under a
+           constraint of OPTION_CLADES clades of the generating tree with
+           its NNI neighbourhood capped (no bipartition may conflict with
+           the constraint, the cap must be logged); C, run_stage2 with the
+           nucleotide alphabet (GTR) on NT_FAMILIES seeded JC+Gamma
+           families of NT_LENGTH nt over the generating tree, from the
+           families unaligned; one Fitch batch of A's NNI candidates
+           timed (plain PyTorch, no kernel); then path_checks at A's
+           chosen model and at C's GTR model (the float64 LL and gradient
+           errors, and the dead states' transition probabilities, which
+           must be within DEAD_LEAK_TOL), both kernels on B's bootstrap
+           replicates (compacted codes, integer column counts as the
+           cotangent), and both kernels at A's full tree under a model
+           matrix evaluation did not choose (BLOSUM62F, or WAGF if
+           BLOSUM62F won)
   pepr     run_pepr with PeprConfig.default_track() (ml full tree,
            PEPR_REPS replicates, refinement) on the pepr_genomes input,
            files written to a temporary directory; every launch count is
@@ -157,6 +183,9 @@ S1_INGROUP = 11
 S1_POOL = 1
 S1_FAMILIES = 1300
 S1_RANDOM = 100
+# profile_stage1's ingroup genomes: all 11 until the stage2_options
+# phase came
+PROFILE_S1_INGROUP = 4
 SW_CHECK_PAIRS = 256  # pairs per bucket held against the plain version
 RECOVERY_FLOOR = 0.5  # a broken path recovers far fewer families
 
@@ -168,9 +197,22 @@ KERNEL_TREES = 4
 SUPPORT_REPS = 100  # the pipeline's default (the kernels phase's block)
 # the stage2 phase's replicates: cut from the default 100 to keep the
 # script within its 600 s once the pepr phase came (100 took 605.5 s
-# on one run)
-STAGE2_REPS = 50
-PROFILE_REPS = 8
+# on one run), and from 50 to 16 when the stage2_options phase came
+STAGE2_REPS = 16
+# the profile phase's replicates: 8 until the stage2_options phase came
+PROFILE_REPS = 4
+# stage2_options: A's nj replicates and B's bootstrap replicates, the
+# clades of the generating tree in B's constraint, B's NNI cap (below
+# the ~200 moves of a 53-taxon tree), and C's nucleotide families
+OPTION_REPS = 16
+OPTION_CLADES = 4
+OPTION_MAX_CANDIDATES = 64
+NT_FAMILIES = 80
+NT_LENGTH = (300, 750)
+NT_REPS = 8
+# int32 operations of one Fitch child combine in the algorithm: the
+# intersection, its empty test, the union, the select and the step count
+FITCH_OPS_PER_COMBINE = 5
 MAX_TREE_TAXA = 4096  # a rooted tree of 8,191 nodes: the kernels' limit
 MAX_TREE_SITES = 256
 # stage 2 from unaligned families: per sequence 0-3 deleted stretches of
@@ -182,7 +224,23 @@ PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
 # version (one every SCORE_BATCH / PLAIN_SPR_TREES)
 PLAIN_REP_TREES = 8  # replicates of a path's block held against the plain
 # version
+# every depth cut made for the 600 s budget, printed in the stage2_start
+# line (PERF.md §4 has the seconds each saved)
+CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
+        f"stage2 support_reps 50 -> {STAGE2_REPS} (the stage2_options "
+        "phase)",
+        f"profile support_reps 8 -> {PROFILE_REPS} (the stage2_options "
+        "phase)",
+        f"profile_stage1 ingroup {S1_INGROUP} -> {PROFILE_S1_INGROUP} "
+        "genomes (the stage2_options phase)",
+        "stage2_options C: 80 nucleotide families, not 120 (the same)"]
 FINAL_LL_RTOL = 1e-5  # a path's final LL, kernel against the plain path
+# and against the float64 plain LL
+# largest transition probability allowed between a dead state (pi <=
+# 1e-6, nucleotide GTR's 16) and a live one: below it a dead state's
+# internal partial stays under 1e-9 of the live ones' largest at every
+# node, so it can never set a shared rescale
+DEAD_LEAK_TOL = 1e-9
 FWD_RTOL = 1e-5  # per-site LL, elementwise (plus 1e-5 absolute)
 BWD_RTOL = 1e-4  # gradient, max |diff| over max |ref| (summation order)
 
@@ -296,6 +354,42 @@ def planted_nt_pairs(rng, n: int, lq: int, lt: int):
         piece = piece[keep]
         q[b, :len(piece)] = piece
     return q, t
+
+
+def nt_families(tree, lengths, rng, absent: float = 0.1, min_taxa: int = 4,
+                alpha: float = 0.5):
+    """Nucleotide families evolved down `tree` under Jukes-Cantor with
+    Gamma(`alpha`) site rates: on a branch of length t a site of rate r is
+    redrawn uniformly from ACGT with probability 1 - exp(-4 r t / 3),
+    which is JC's transition matrix.  One (name, taxa, codes) triple per
+    entry of `lengths`, each family missing a random ~`absent` share of
+    the taxa (at least `min_taxa` stay), as `simulate_families` does for
+    proteins."""
+    import math
+    import numpy as np
+    leaves = tree.leaves()
+    taxa = [tree.labels[i] for i in leaves]
+    fams = []
+    for g, length in enumerate(lengths):
+        rates = rng.gamma(alpha, 1.0 / alpha, size=int(length))
+        states = {tree.root: rng.integers(0, 4, int(length)).astype(np.int8)}
+        for node in tree.preorder():
+            if node == tree.root:
+                continue
+            t = tree.blen[node]
+            t = 0.1 if math.isnan(t) else float(t)
+            cur = states[tree.parent[node]].copy()
+            hit = rng.random(int(length)) < 1.0 - np.exp(-4.0 * rates * t
+                                                          / 3.0)
+            cur[hit] = rng.integers(0, 4, int(hit.sum()))
+            states[node] = cur
+        keep = rng.random(len(taxa)) >= absent
+        if keep.sum() < min_taxa:
+            keep[rng.choice(len(taxa), size=min_taxa, replace=False)] = True
+        idx = np.nonzero(keep)[0]
+        fams.append((f"ntfam{g:04d}", [taxa[i] for i in idx],
+                     np.stack([states[leaves[i]] for i in idx])))
+    return fams
 
 
 # The planted tie of tests/test_torch_sw_ties.py (AA_ORDER codes): motif
@@ -420,14 +514,17 @@ SMALL_S2 = dict(min_taxa=3, full_tree_method="fast_ml", support_reps=3,
                 nni_rounds=2, seed=7)
 
 
-def three_sequence_sets(rng, n_families: int = 12):
+def three_sequence_sets(rng, n_families: int = 12, alphabet: str = "aa"):
     """`n_families` homolog groups of 3 sequences each, drawn from 6 taxa
-    and evolved down one random tree, with seeded deletions."""
+    and evolved down one random tree (proteins under WAG, or nucleotides
+    under `nt_families`' JC for `alphabet="nt"`), with seeded
+    deletions."""
     from pepr_tpu_torch.utils.simulate import random_tree, simulate_families
     taxa = [f"T{i}" for i in range(6)]
     tree = random_tree(taxa, rng, scale=0.1)
-    fams = simulate_families(tree, rng.integers(80, 160, size=n_families),
-                             rng, alpha=0.5, absent=0.5, min_taxa=3)
+    make = nt_families if alphabet == "nt" else simulate_families
+    fams = make(tree, rng.integers(80, 160, size=n_families), rng,
+                alpha=0.5, absent=0.5, min_taxa=3)
     fams = [(n, t[:3], c[:3]) for n, t, c in fams]
     return unaligned_families(fams, rng)[0]
 
@@ -553,7 +650,7 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
     that disagree, or on two gradient launches that differ in any bit.
     With `wide`, the plain gradient is also computed in float64 on the
     card and both float32 sides' max-normalised errors against it are
-    reported (`float64_check`)."""
+    reported (`float64_check`); the kernel's must be within BWD_RTOL."""
     import torch
     from pepr_tpu_torch.ops import pruning
 
@@ -629,13 +726,15 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
                        reps),
             plain_ms=plain_ms, plain_trees=len(trees),
             bit_identical_relaunch=same, **facts)
-        if wide:
-            out["pruning_bwd"]["float64_check"] = float64_errors(g_k)
         ok = bool(torch.isfinite(g_k).all()) and d_max / r_max <= BWD_RTOL
+        if wide:
+            wide_err = float64_errors(g_k)
+            out["pruning_bwd"]["float64_check"] = wide_err
+            ok = ok and wide_err["kernel_vs_float64"] <= BWD_RTOL
         del g_k
         if not ok:
-            fail(f"pruning_bwd disagrees with its plain version: "
-                 f"{out['pruning_bwd']}")
+            fail(f"pruning_bwd disagrees with its plain version or with "
+                 f"float64: {out['pruning_bwd']}")
         if not same:
             fail("two pruning_bwd launches on the same inputs differ")
     for k, v in out.items():
@@ -644,66 +743,119 @@ def check_kernels(codes, ch, pm, pi, ct, *, grad=True, plain_trees=None,
     return out
 
 
-def path_checks(res, reps: int, seed: int, dev) -> dict:
+def tree_tensors(trees, taxa, model, dev):
+    """(children, transition matrices) of `trees` under `model` on
+    `dev`, as the kernels take them."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops.likelihood import (transition_matrices,
+                                               tree_to_arrays)
+    arrs = [tree_to_arrays(tr, taxa) for tr in trees]
+    ch = torch.as_tensor(np.stack([a.children for a in arrs]), device=dev)
+    blen = torch.as_tensor(np.stack([a.blen for a in arrs]), device=dev)
+    return ch, transition_matrices(model, blen).contiguous()
+
+
+def replicate_block(cat, trees, weights, model, dev) -> tuple:
+    """The first block of a path's replicates as `replicate_blopt` gives
+    it to the kernels: the codes compacted to each replicate's live
+    columns, its site weights (jackknife 0/1 masks or bootstrap column
+    counts) as the cotangent, its trees under `model`.  Returns (codes,
+    weights, children, transition matrices)."""
+    from pepr_tpu_torch.parallel.replicates import BLOCK_REPS, replicate_codes
+    codes_r, w_r = replicate_codes(cat.mat, weights[:BLOCK_REPS], dev)
+    ch, pm = tree_tensors(trees[:w_r.shape[0]], cat.taxa, model, dev)
+    return codes_r, w_r, ch, pm
+
+
+def block_check(codes_r, w_r, ch, pm, pi, length: int) -> dict:
+    """check_kernels on a replicate block, PLAIN_REP_TREES of its trees
+    against the plain version, with the weights' largest count and the
+    share of the `length` columns of the concatenation live in a
+    replicate."""
+    n_rep = w_r.shape[0]
+    return dict(
+        trees=n_rep, sites=codes_r.shape[-1],
+        codes="per-replicate" if codes_r.dim() == 3 else "shared",
+        weight_max=float(w_r.max()),
+        live_share=float((w_r > 0).sum()) / (n_rep * length),
+        **check_kernels(codes_r, ch, pm, pi, w_r, reps=3, plain_trees=range(
+            0, n_rep, max(1, n_rep // PLAIN_REP_TREES))))
+
+
+def path_checks(res, reps: int, seed: int, dev, model=None) -> dict:
     """The kernels at the shapes a run_stage2 run gave them, each against
     its plain version (check_kernels): the run's full tree over its
     trimmed concatenation, and the first block of its jackknife
     replicates (its own support trees) on their compacted codes, under
-    the run's Gamma shape; and the full tree's LL by the kernel against
-    the plain path.  Called after the run's launch counts are read."""
+    the run's model (`model`, default WAG+Gamma at the run's shape); the
+    full tree's LL by the kernel against the plain path, and both against
+    a float64 plain LL (the kernel's within FINAL_LL_RTOL of each).  For
+    a model with dead states (nucleotide GTR: pi = 1e-10 outside ACGT)
+    the largest transition probability between a dead and a live state
+    (`dead_state_leak`) must be within DEAD_LEAK_TOL.  Called after the
+    run's launch counts are read."""
     import numpy as np
     import torch
     from pepr_tpu_torch.models.support import jackknife_gene_masks
     from pepr_tpu_torch.ops import pruning
     from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
-                                               transition_matrices,
                                                tree_to_arrays)
-    from pepr_tpu_torch.parallel.replicates import BLOCK_REPS, replicate_codes
     cat = res.concat
-    model = WagModel.create(alpha=res.gamma_alpha)
+    if model is None:
+        model = WagModel.create(alpha=res.gamma_alpha)
     pi = torch.as_tensor(model.pi, device=dev)
 
-    def batch(trees):
-        arrs = [tree_to_arrays(tr, cat.taxa) for tr in trees]
-        ch = torch.as_tensor(np.stack([a.children for a in arrs]),
-                             device=dev)
-        blen = torch.as_tensor(np.stack([a.blen for a in arrs]), device=dev)
-        return arrs, ch, transition_matrices(model, blen).contiguous()
-
-    arrs, ch, pm = batch([res.full_tree])
+    arr = tree_to_arrays(res.full_tree, cat.taxa)
+    ch, pm = tree_tensors([res.full_tree], cat.taxa, model, dev)
     codes = torch.as_tensor(cat.mat, device=dev)
-    ll_kernel = loglik(cat.mat, arrs[0].children, arrs[0].blen, model,
-                       device=dev)
+    ll_kernel = loglik(cat.mat, arr.children, arr.blen, model, device=dev)
     with torch.no_grad():
         ll_plain = float(pruning.site_ll_reference(codes, ch, pm, pi)
                          .double().sum())
+        ll_wide = float(pruning.site_ll_reference(
+            codes, ch, pm.double(), pi.double()).sum())
     ll_rel = abs(ll_kernel - ll_plain) / abs(ll_plain)
-    if not np.isfinite(ll_kernel) or not ll_rel <= FINAL_LL_RTOL:
+    ll_rel_wide = abs(ll_kernel - ll_wide) / abs(ll_wide)
+    if not np.isfinite(ll_kernel) or not ll_rel <= FINAL_LL_RTOL \
+            or not ll_rel_wide <= FINAL_LL_RTOL:
         fail(f"final log-likelihood {ll_kernel} is not finite or disagrees "
-             f"with the plain path's {ll_plain}")
+             f"with the plain path's {ll_plain} or the float64 one's "
+             f"{ll_wide}")
+    out = dict(final_ll_kernel=ll_kernel, final_ll_plain=ll_plain,
+               final_ll_float64=ll_wide,
+               final_ll_rel_vs_float64=dict(
+                   kernel=ll_rel_wide,
+                   plain=abs(ll_plain - ll_wide) / abs(ll_wide)),
+               final_ll_rel=ll_rel)
+    dead = pi <= 1e-6
+    if bool(dead.any()):
+        live = ~dead
+        leak = float(torch.maximum(
+            pm[..., dead, :][..., live].abs().max(),
+            pm[..., live, :][..., dead].abs().max()))
+        out["dead_state_leak"] = leak
+        if not leak <= DEAD_LEAK_TOL:
+            fail(f"a dead state's transition probability to a live one is "
+                 f"{leak}, above {DEAD_LEAK_TOL}")
     shapes = {"full_tree": dict(
         trees=1, sites=cat.length, codes="shared",
         **check_kernels(codes, ch, pm, pi,
                         torch.ones((1, cat.length), device=dev), wide=True))}
-    del codes
-    masks = jackknife_gene_masks(cat, reps, seed)
-    codes_r, w_r = replicate_codes(cat.mat, masks[:BLOCK_REPS], dev)
-    n_rep = w_r.shape[0]
-    _, ch, pm = batch(res.support_trees[:n_rep])
-    shapes["replicate_block"] = dict(
-        trees=n_rep, sites=codes_r.shape[-1],
-        codes="per-replicate" if codes_r.dim() == 3 else "shared",
-        **check_kernels(codes_r, ch, pm, pi, w_r, reps=3, plain_trees=range(
-            0, n_rep, max(1, n_rep // PLAIN_REP_TREES))))
-    del codes_r, w_r, ch, pm
+    del codes, ch, pm
+    block = replicate_block(cat, res.support_trees,
+                            jackknife_gene_masks(cat, reps, seed), model, dev)
+    shapes["replicate_block"] = block_check(*block, pi, cat.length)
+    del block
     torch.cuda.empty_cache()
-    return dict(final_ll_kernel=ll_kernel, final_ll_plain=ll_plain,
-                final_ll_rel=ll_rel, kernel_shapes=shapes)
+    return dict(out, kernel_shapes=shapes)
 
 
 def device_time(prof, wall: float) -> dict:
     """Device time by kernel name from a torch.profiler run, and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time.  The profiles record the CUDA
+    activity alone: host operators' events add nothing read here and take
+    seconds to collect."""
     by_name = {}
     for ev in prof.key_averages():
         # device-side events only (kernels, copies); host ops report the
@@ -989,14 +1141,14 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
         fail(f"only {rec} of {elig} families recovered")
     entry["launches"] = launches
 
-    # -- profile_stage1: device time by kernel over a second full run
+    # -- profile_stage1: device time by kernel over a second, smaller run
     from torch.profiler import ProfilerActivity, profile
     t = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_stage1(ingroup, pool, cfg, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_stage1(ingroup[:PROFILE_S1_INGROUP], pool, cfg, device="cuda")
         torch.cuda.synchronize()
-    phase("profile_stage1", **device_time(prof, time.time() - t))
+    phase("profile_stage1", ingroup=PROFILE_S1_INGROUP, pool=len(pool),
+          **device_time(prof, time.time() - t))
     return entry
 
 
@@ -1463,6 +1615,341 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float) -> dict:
     return launches, checks
 
 
+# -- stage 2's other options (the stage2_options phase)
+
+def constraint_clades(tree, k: int, sizes=(3, 8)) -> list[list[str]]:
+    """The first `k` disjoint clades of `tree` in postorder with
+    `sizes[0]`-`sizes[1]` leaves each (leaf labels, sorted)."""
+    below: dict[int, list[str]] = {}
+    picked: list[list[str]] = []
+    used: set[str] = set()
+    for node in tree.postorder():
+        node = int(node)
+        if tree.is_leaf(node):
+            below[node] = [tree.labels[node]]
+            continue
+        below[node] = sorted(x for c in tree.children[node]
+                             for x in below[c])
+        leaves = below[node]
+        if sizes[0] <= len(leaves) <= sizes[1] and not used & set(leaves) \
+                and len(picked) < k:
+            picked.append(leaves)
+            used |= set(leaves)
+    return picked
+
+
+def constraint_tree(taxa: list[str], clades: list[list[str]]):
+    """A multifurcating tree over `taxa` whose only bipartitions are
+    `clades`."""
+    from pepr_tpu_torch.tree import parse_newick
+    inside = {x for c in clades for x in c}
+    parts = ["(" + ",".join(c) + ")" for c in clades]
+    parts += [t for t in taxa if t not in inside]
+    return parse_newick("(" + ",".join(parts) + ");")
+
+
+def option_runs(alignments, nt_sets, truth, dev, reps: int, nt_reps: int,
+                max_candidates: int, clade_sizes=(3, 8)) -> dict:
+    """A, B and C of the stage2_options phase on `dev` (the CPU in the
+    tests' rehearsal); fails on a broken path.  Returns the numbers and
+    A's and C's results and models."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.data.protein_models import model_names
+    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
+    from pepr_tpu_torch.models.support import support_trees
+    from pepr_tpu_torch.models.treebuild import ml_tree, nj_tree
+    from pepr_tpu_torch.ops import parsimony
+    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
+    from pepr_tpu_torch.pipeline.stage2 import (Stage2Config, run_stage2,
+                                                run_stage2_aligned,
+                                                substitution_model)
+    from pepr_tpu_torch.tree import rf_distance
+    from pepr_tpu_torch.tree.bipartition import (bipartitions, compatible,
+                                                 taxon_index)
+    taxa = sorted(truth.leaf_labels())
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    msgs = _Messages()
+    port_log = logging.getLogger("pepr_tpu_torch")
+    port_log.setLevel(logging.INFO)
+    port_log.addHandler(msgs)
+    try:
+        # A: congruence filter, matrix evaluation, parsimony_bl, nj supports
+        cfg_a = Stage2Config(congruence_filter=True, matrix_evaluation=True,
+                             full_tree_method="parsimony_bl",
+                             support_method="nj", support_reps=reps)
+        parsimony.reset_counts()
+        sync()
+        t = time.time()
+        res_a = run_stage2_aligned(alignments, cfg_a, device=dev)
+        sync()
+        wall_a = time.time() - t
+        fitch = dict(parsimony.TALLY)
+        lines_a = list(msgs.lines)
+        model_a = substitution_model(res_a.model_name, res_a.gamma_alpha,
+                                     res_a.concat.mat)
+        matrix_ll = {ln.split()[2]: float(ln.split("LL=")[1])
+                     for ln in lines_a if ln.startswith("matrix evaluation:")
+                     and "LL=" in ln}
+        pars = [ln for ln in lines_a if ln.startswith("parsimony_tree:")]
+        a = dict(seconds=round(wall_a, 3),
+                 timings={k: round(v, 3) for k, v in res_a.timings.items()},
+                 families_in=len(alignments),
+                 families_kept=res_a.concat.n_genes,
+                 columns=res_a.concat.length, gamma_alpha=res_a.gamma_alpha,
+                 matrix_ll=matrix_ll, model_name=res_a.model_name,
+                 parsimony=pars, fitch=fitch,
+                 rf_vs_generating_tree=rf_distance(res_a.full_tree, truth),
+                 supports=[v for v in res_a.tree.support if v == v])
+        want_kept = len(alignments) - int(len(alignments)
+                                          * cfg_a.congruence_drop)
+        if res_a.concat.n_genes != want_kept:
+            fail(f"the congruence filter kept {res_a.concat.n_genes} of "
+                 f"{len(alignments)} families, expected {want_kept}")
+        if sorted(matrix_ll) != sorted(model_names()) or not all(
+                np.isfinite(v) for v in matrix_ll.values()):
+            fail(f"matrix evaluation scored {matrix_ll}")
+        if matrix_ll[res_a.model_name] < max(matrix_ll.values()) - 0.01:
+            fail(f"matrix evaluation chose {res_a.model_name}, not the best "
+                 f"of {matrix_ll}")
+        if len(pars) < 2 or res_a.log_likelihood is not None:
+            fail("parsimony_bl did not run its parsimony searches")
+        if sorted(res_a.full_tree.leaf_labels()) != taxa:
+            fail("A's full tree does not have the dataset's taxa")
+        if not a["supports"] or max(a["supports"]) > reps:
+            fail(f"A's supports out of range: {a['supports']}")
+
+        # B: on A's concatenation, bootstrap supports, NJ, and a shallow
+        # ML search under a constraint with a capped neighbourhood
+        cat = res_a.concat
+        msgs.lines.clear()
+        sync()
+        t = time.time()
+        boot = support_trees(cat, reps, cfg_a.seed, model=model_a,
+                             method="fast_ml", resample="bootstrap_sites",
+                             device=dev)
+        sync()
+        boot_s = time.time() - t
+        t = time.time()
+        nj = nj_tree(cat.mat, cat.taxa, device=dev)
+        sync()
+        nj_s = time.time() - t
+        clades = constraint_clades(truth, OPTION_CLADES, clade_sizes)
+        cons = constraint_tree(taxa, clades)
+        t = time.time()
+        con, con_ll = ml_tree(cat.mat, cat.taxa, model_a, nni_rounds=2,
+                              spr_rounds=0, constraint=cons,
+                              max_candidates=max_candidates, device=dev)
+        sync()
+        con_s = time.time() - t
+        idx = taxon_index(taxa)
+        full = (1 << len(taxa)) - 1
+        cons_bips = bipartitions(cons, idx)
+        bad = [b for b in bipartitions(con, idx) for c in cons_bips
+               if not compatible(b, c, full)]
+        trunc = [ln for ln in msgs.lines if "truncating NNI" in ln]
+        b = dict(bootstrap=dict(seconds=round(boot_s, 3), reps=len(boot),
+                                rf_vs_generating_tree=[
+                                    rf_distance(x, truth) for x in boot]),
+                 nj=dict(seconds=round(nj_s, 6),
+                         rf_vs_generating_tree=rf_distance(nj, truth)),
+                 constrained_ml=dict(
+                     seconds=round(con_s, 3), clades=[len(c) for c in clades],
+                     log_likelihood=con_ll, incompatible=len(bad),
+                     truncation=trunc,
+                     rf_vs_generating_tree=rf_distance(con, truth)))
+        if len(boot) != reps or any(sorted(x.leaf_labels()) != taxa
+                                    for x in boot + [nj, con]):
+            fail("B's trees do not have the dataset's taxa")
+        if len(clades) != OPTION_CLADES:
+            fail(f"found {len(clades)} clades for the constraint")
+        if bad:
+            fail(f"the constrained ML tree has {len(bad)} bipartitions "
+                 "incompatible with the constraint")
+        if not trunc:
+            fail("max_candidates did not truncate the NNI neighbourhood")
+        if not np.isfinite(con_ll):
+            fail("the constrained ML tree's LL is not finite")
+
+        # C: the nucleotide path from groups
+        cfg_c = Stage2Config(alphabet="nt", full_tree_method="fast_ml",
+                             support_reps=nt_reps)
+        sync()
+        reset_align_counts()
+        reset_graph_counts()
+        t = time.time()
+        res_c = run_stage2(nt_sets, cfg_c, device=dev)
+        sync()
+        wall_c = time.time() - t
+        align_c = dict(ALIGN, **GRAPHS)
+        model_c = substitution_model(res_c.model_name, res_c.gamma_alpha,
+                                     res_c.concat.mat)
+        c = dict(seconds=round(wall_c, 3),
+                 timings={k: round(v, 3) for k, v in res_c.timings.items()},
+                 align=align_c,
+                 families_in=len(nt_sets), families_kept=res_c.concat.n_genes,
+                 columns=res_c.concat.length, model_name=res_c.model_name,
+                 base_freqs=[float(x) for x in model_c.pi[:4]],
+                 gamma_alpha=res_c.gamma_alpha,
+                 log_likelihood=res_c.log_likelihood,
+                 rf_vs_generating_tree=rf_distance(res_c.full_tree, truth),
+                 supports=[v for v in res_c.tree.support if v == v])
+        if res_c.model_name != "GTR":
+            fail(f"the nucleotide run used {res_c.model_name}, not GTR")
+        if sorted(res_c.full_tree.leaf_labels()) != taxa:
+            fail("C's full tree does not have the dataset's taxa")
+        if not np.isfinite(res_c.log_likelihood):
+            fail("C's log-likelihood is not finite")
+        if c["rf_vs_generating_tree"] > len(taxa) - 3:
+            fail(f"C's tree is far from the generating tree "
+                 f"(RF {c['rf_vs_generating_tree']})")
+    finally:
+        port_log.removeHandler(msgs)
+    return dict(a=a, b=b, c=c, res_a=res_a, model_a=model_a, res_c=res_c,
+                model_c=model_c, boot=boot, boot_seed=cfg_a.seed)
+
+
+def bootstrap_block(cat, trees, seed: int, model, dev) -> tuple:
+    """replicate_block for B's bootstrap replicates: their multinomial
+    column counts (`resample="bootstrap_sites"`, the weights
+    support_trees drew for `trees`) as the cotangent; fails unless the
+    block is compacted and its counts are integers reaching 2 or more,
+    the input jackknife masks never give the kernels."""
+    import numpy as np
+    from pepr_tpu_torch.models.support import replicate_weights
+    w = np.stack([replicate_weights(cat, r, seed, resample="bootstrap_sites")
+                  for r in range(len(trees))])
+    block = replicate_block(cat, trees, w, model, dev)
+    w_r = block[1]
+    if block[0].dim() != 3 or float(w_r.max()) < 2 \
+            or not bool((w_r == w_r.round()).all()):
+        fail("the bootstrap block is not compacted or its weights are not "
+             "integer counts above 1")
+    return block
+
+
+def fitch_bound(K: int, L: int, children, code_bytes: int,
+                sm_clock_mhz: float):
+    """Least time (ms) for the Fitch pass over K topologies of L sites:
+    its int32 operations (FITCH_OPS_PER_COMBINE for each child set
+    combined into a node's, the edges beyond each node's first child)
+    over the int32 rate, or its bytes (codes and children in, K scores
+    out) over HBM bandwidth; returns (ms, bound_by)."""
+    kids = int((children >= 0).sum())
+    combines = kids - children.shape[0]
+    t_ops = K * L * combines * FITCH_OPS_PER_COMBINE / (
+        INT32_LANES * sm_clock_mhz * 1e6)
+    t_bytes = (code_bytes + K * children.size * 4 + K * 8) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def stage2_options_phase(alignments, truth, seed: int, dev,
+                         sm_clock_mhz: float) -> dict:
+    """The stage2_options phase: option_runs at the data phase's width
+    (A and B on the true alignments, C on seeded nucleotide families
+    over the generating tree), the pruning launch counts reset just
+    before and read just after; the Fitch pass's time on one batch of
+    A's NNI candidates beside its bound; then path_checks at A's chosen
+    model and at C's GTR model, each on its run's full tree and first
+    replicate block, both kernels on B's bootstrap block (integer column
+    counts through compaction), and both kernels at A's full tree under
+    a model matrix evaluation did not choose.  Returns the checks'
+    numbers."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.models.treebuild import (FITCH_BATCH,
+                                                 _nni_candidates,
+                                                 _postorder_fix,
+                                                 empirical_aa_freqs)
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.ops.likelihood import (WagModel, transition_matrices,
+                                               tree_to_arrays)
+    from pepr_tpu_torch.ops.parsimony import fitch_score_topologies
+    from pepr_tpu_torch.pipeline.stage2 import Stage2Config
+    rng = np.random.default_rng(seed + 5)
+    fams = nt_families(truth, rng.integers(NT_LENGTH[0], NT_LENGTH[1] + 1,
+                                           size=NT_FAMILIES), rng)
+    nt_sets, _ = unaligned_families(fams, rng)
+    t = time.time()
+    torch.cuda.synchronize()
+    pruning.reset_launch_counts()
+    runs = option_runs(alignments, nt_sets, truth, dev, OPTION_REPS,
+                       NT_REPS, OPTION_MAX_CANDIDATES)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(pruning.LAUNCHES)
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the stage2_options path")
+    # one Fitch batch: A's full tree's NNI candidates at A's width
+    cat = runs["res_a"].concat
+    n = len(cat.taxa)
+    arr = tree_to_arrays(runs["res_a"].full_tree, cat.taxa)
+    ch = arr.children
+    cands = [_postorder_fix(x, n) for x in _nni_candidates(ch, n)]
+    batch = torch.as_tensor(np.stack(cands[:FITCH_BATCH]), device=dev)
+    codes = torch.as_tensor(cat.mat, device=dev)
+    w = torch.ones(cat.length, device=dev)
+    fitch_ms = time_ms(lambda: fitch_score_topologies(codes, batch, w), 3)
+    f_bound, f_by = fitch_bound(len(batch), cat.length, ch, cat.mat.size,
+                                sm_clock_mhz)
+    del codes, batch
+    checks = {
+        "a": path_checks(runs["res_a"], OPTION_REPS, Stage2Config().seed,
+                         dev, model=runs["model_a"]),
+        "c": path_checks(runs["res_c"], NT_REPS, Stage2Config().seed, dev,
+                         model=runs["model_c"])}
+    # B's bootstrap replicates on their compacted codes, their integer
+    # column counts as the cotangent
+    block = bootstrap_block(cat, runs["boot"], runs["boot_seed"],
+                            runs["model_a"], dev)
+    checks["b"] = {"kernel_shapes": {"bootstrap_block": block_check(
+        *block, torch.as_tensor(runs["model_a"].pi, device=dev),
+        cat.length)}}
+    del block
+    # A's full tree once more under a model matrix evaluation scored but
+    # did not choose (WAG-generated data picks WAG), so a non-WAG
+    # eigensystem meets the kernels on the card every run
+    other = next(m for m in ("BLOSUM62F", "WAGF")
+                 if m != runs["res_a"].model_name)
+    model_o = WagModel.named(other, alpha=runs["res_a"].gamma_alpha,
+                             empirical_freqs=empirical_aa_freqs(cat.mat))
+    pi_o = torch.as_tensor(model_o.pi, device=dev)
+    blen = torch.as_tensor(arr.blen, device=dev)
+    codes = torch.as_tensor(cat.mat, device=dev)
+    checks["a"]["kernel_shapes"][f"full_tree_{other}"] = dict(
+        trees=1, sites=cat.length, codes="shared", model=other,
+        **check_kernels(codes, torch.as_tensor(ch[None], device=dev),
+                        transition_matrices(model_o, blen[None])
+                        .contiguous(), pi_o,
+                        torch.ones((1, cat.length), device=dev)))
+    del codes
+    phase("stage2_options", seconds=round(wall, 3),
+          config=dict(a=dict(congruence_filter=True, matrix_evaluation=True,
+                             full_tree_method="parsimony_bl",
+                             support_method="nj", support_reps=OPTION_REPS),
+                      b=dict(bootstrap_reps=OPTION_REPS,
+                             constraint_clades=OPTION_CLADES,
+                             nni_rounds=2, spr_rounds=0,
+                             max_candidates=OPTION_MAX_CANDIDATES),
+                      c=dict(alphabet="nt", families=NT_FAMILIES,
+                             lengths=list(NT_LENGTH),
+                             full_tree_method="fast_ml",
+                             support_reps=NT_REPS)),
+          a=runs["a"], b=runs["b"], c=runs["c"], launches=launches,
+          fitch_batch=dict(topologies=len(cands[:FITCH_BATCH]),
+                           candidates_of_tree=len(cands), sites=cat.length,
+                           ms=fitch_ms, bound_ms=f_bound, bound_by=f_by,
+                           route="plain PyTorch (no kernel)"),
+          checks=checks)
+    return checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1553,19 +2040,13 @@ def main(argv=None) -> int:
     model = WagModel.create(alpha=0.5)
     pi = torch.as_tensor(model.pi, device=dev)
 
-    def tree_batch(trs, names=taxa):
-        arrs = [tree_to_arrays(tr, names) for tr in trs]
-        ch = torch.as_tensor(np.stack([a.children for a in arrs]),
-                             device=dev)
-        blen = torch.as_tensor(np.stack([a.blen for a in arrs]), device=dev)
-        return ch, transition_matrices(model, blen).contiguous()
-
     shapes = {}
     # slice: 4 trees x 8,192 columns over shared codes, 1% set to X
     mat = cat.mat[:, :KERNEL_SITES].copy()
     mat[rng.random(mat.shape) < 0.01] = 22
-    ch, pm = tree_batch([truth] + [random_tree(taxa, rng)
-                                   for _ in range(KERNEL_TREES - 1)])
+    ch, pm = tree_tensors([truth] + [random_tree(taxa, rng)
+                                     for _ in range(KERNEL_TREES - 1)],
+                          taxa, model, dev)
     ct = torch.as_tensor(rng.random((KERNEL_TREES, KERNEL_SITES))
                          .astype(np.float32), device=dev)
     codes_s = torch.as_tensor(mat, device=dev)
@@ -1577,7 +2058,7 @@ def main(argv=None) -> int:
         **check_kernels(codes_s, ch, pm, pi, ct))
     # full tree: branch-length fitting and LL evaluations of one tree
     codes_full = torch.as_tensor(cat.mat, device=dev)
-    ch, pm = tree_batch([truth])
+    ch, pm = tree_tensors([truth], taxa, model, dev)
     shapes["full_tree"] = dict(
         trees=1, sites=cat.length, codes="shared",
         **check_kernels(codes_full, ch, pm, pi,
@@ -1589,7 +2070,8 @@ def main(argv=None) -> int:
     if codes_r.dim() != 3:
         fail("jackknife replicates did not get compacted codes")
     n_rep = codes_r.shape[0]
-    ch, pm = tree_batch([random_tree(taxa, rng) for _ in range(n_rep)])
+    ch, pm = tree_tensors([random_tree(taxa, rng) for _ in range(n_rep)],
+                          taxa, model, dev)
     shapes["replicate_block"] = dict(
         trees=n_rep, sites=codes_r.shape[-1], codes="per-replicate",
         **check_kernels(codes_r, ch, pm, pi, w_r, reps=3))
@@ -1617,7 +2099,7 @@ def main(argv=None) -> int:
     # the largest tree the kernels take (8,191 nodes), through the spill
     # tiers, on random codes
     big_taxa = [f"big{i:04d}" for i in range(MAX_TREE_TAXA)]
-    ch, pm = tree_batch([random_tree(big_taxa, rng)], big_taxa)
+    ch, pm = tree_tensors([random_tree(big_taxa, rng)], big_taxa, model, dev)
     big = rng.integers(0, 20, size=(MAX_TREE_TAXA, MAX_TREE_SITES))
     big[rng.random(big.shape) < 0.1] = 23
     shapes["max_tree"] = dict(
@@ -1752,7 +2234,7 @@ def main(argv=None) -> int:
         full_tree_method="ml", nni_rounds=cfg.nni_rounds,
         bl_steps=cfg.bl_steps, spr_rounds=2, support_reps=cfg.support_reps,
         support_bl_steps=cfg.support_bl_steps,
-        cuts=[f"support_reps {SUPPORT_REPS} -> {STAGE2_REPS} (time)"]))
+        cuts=CUTS))
     msgs = _Messages()
     port_log = logging.getLogger("pepr_tpu_torch")
     port_log.setLevel(logging.INFO)
@@ -1802,6 +2284,10 @@ def main(argv=None) -> int:
 
     del res
 
+    # -- stage2_options: stage 2's other options at the same width
+    o_checks = stage2_options_phase(alignments, truth, args.seed, dev,
+                                    sm_clock)
+
     # -- pepr: the reference's default run, genomes to the output files
     p_launches, p_checks = pepr_phase(h, dev, sm_clock)
 
@@ -1809,8 +2295,7 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
     pcfg = Stage2Config(full_tree_method="fast_ml", support_reps=PROFILE_REPS)
     t = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run_stage2_aligned(alignments, pcfg, device="cuda")
         torch.cuda.synchronize()
     phase("profile", config=dict(full_tree_method="fast_ml",
@@ -1820,7 +2305,9 @@ def main(argv=None) -> int:
     # the kernels' numbers at the full tree's shape; errors are the
     # largest over every shape checked
     every = list(shapes.values()) + [
-        v for c in (checks, p_checks) for v in c["kernel_shapes"].values()]
+        v for c in (checks, p_checks, o_checks["a"], o_checks["b"],
+                    o_checks["c"])
+        for v in c["kernel_shapes"].values()]
 
     def entry(k):
         at = shapes["full_tree"][k]

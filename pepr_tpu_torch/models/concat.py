@@ -7,8 +7,8 @@ tracked (ConcatenatedSequenceAlignment.java:28-41) and drive gene-wise
 jackknife subsetting and the `.hs` gene x taxon membership matrix
 (PhylogenomicPipeline2.java:1320-1371).
 
-Port of `pepr_tpu/models/concat.py`; the Fitch step counts are not
-ported yet.
+Port of `pepr_tpu/models/concat.py`, with its Fitch step counts and
+per-gene randomization thresholds.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from pepr_tpu_torch.alphabet import GAP
+from pepr_tpu_torch.alphabet import GAP, N_AA
 from pepr_tpu_torch.models.msa import Alignment
 
 
@@ -91,3 +91,87 @@ def concatenate(alignments: list[Alignment],
     return ConcatenatedAlignment(list(taxa), mat,
                                  [a.name for a in alignments], spans,
                                  presence)
+
+
+# -- parsimony-step randomization thresholds -------------------------------
+# ConcatenatedSequenceAlignment.java:141-425 parity.  The reference's
+# per-gene randomization machinery: a gene's observed parsimony steps
+# are compared against a null distribution built by drawing the same
+# number of columns from OTHER genes; the threshold is the (1-alpha)
+# quantile of the replicate step sums.  (Dormant in the reference's
+# main path — setStepsPerSite has no caller — but part of the public
+# component surface.)
+
+def minimum_steps_per_site(mat: np.ndarray) -> np.ndarray:
+    """(L,) minimum possible parsimony steps per column: number of
+    distinct residue states minus one (the column-bipartition count
+    role of SequenceAlignment.getMinimumStepsPerSite; gap/ambiguity
+    codes are not states)."""
+    counts = np.zeros(mat.shape[1], dtype=np.int64)
+    for a in range(N_AA):
+        counts += (mat == a).any(axis=0)
+    return np.maximum(counts - 1, 0)
+
+
+def steps_per_site(cat: "ConcatenatedAlignment", children: np.ndarray,
+                   device=None) -> np.ndarray:
+    """(L,) Fitch parsimony steps per column on a given topology
+    (kernel-array `children` postorder form) — the producer for the
+    reference's setStepsPerSite slot."""
+    import torch
+
+    from pepr_tpu_torch.device import resolve_device
+    from pepr_tpu_torch.ops.parsimony import fitch_sites
+    dev = resolve_device(device)
+    steps = fitch_sites(torch.as_tensor(cat.mat, device=dev),
+                        torch.as_tensor(np.asarray(children, np.int64),
+                                        device=dev))
+    return steps.cpu().numpy().astype(np.int64)
+
+
+def steps_beyond_minimum_per_site(cat: "ConcatenatedAlignment",
+                                  children: np.ndarray,
+                                  device=None) -> np.ndarray:
+    """steps - minimum steps per column
+    (ConcatenatedSequenceAlignment.java:128-143)."""
+    return steps_per_site(cat, children, device) \
+        - minimum_steps_per_site(cat.mat)
+
+
+def threshold_steps_for_gene(cat: "ConcatenatedAlignment",
+                             steps: np.ndarray, gene_idx: int,
+                             reps: int = 100, alpha: float = 0.05,
+                             seed: int = 0,
+                             gene_mask: np.ndarray | None = None) -> int:
+    """(1-alpha)-quantile null threshold for one gene's step sum
+    (ConcatenatedSequenceAlignment.java:141-176 / 244-307).
+
+    `steps` is any per-site step vector (raw or beyond-minimum).
+    Without `gene_mask`, replicates draw the gene's column count from
+    all OTHER columns without replacement (:151-167).  With a
+    `gene_mask` (True = gene's columns excluded from the pool), the
+    masked variant is used: sampling WITH replacement from the
+    unmasked pool, returning -1 when fewer than 3x the gene's length
+    remain (:262-305)."""
+    rng = np.random.default_rng([seed, gene_idx])
+    a, b = cat.spans[gene_idx]
+    gene_len = int(b - a)
+    excluded = np.zeros(cat.length, dtype=bool)
+    excluded[a:b] = True
+    if gene_mask is not None:
+        for g in np.nonzero(np.asarray(gene_mask, bool))[0]:
+            ga, gb = cat.spans[g]
+            excluded[ga:gb] = True
+        pool = steps[~excluded]
+        if len(pool) < 3 * gene_len:
+            return -1
+        rep_steps = pool[rng.integers(0, len(pool),
+                                      size=(reps, gene_len))].sum(axis=1)
+    else:
+        pool = steps[~excluded]
+        rep_steps = np.array([
+            rng.choice(pool, size=min(gene_len, len(pool)),
+                       replace=False).sum()
+            for _ in range(reps)])
+    rep_steps.sort()
+    return int(rep_steps[reps - int(np.ceil(reps * alpha))])

@@ -8,7 +8,11 @@ replicates share the device data; their branch lengths are optimized
 together (`parallel.replicates.replicate_blopt`) and every NNI round
 scores each replicate's whole neighborhood in batched kernel calls.
 The masks come from seeded numpy generators, identical to the JAX
-package's.  Checkpoint and deadline resume are not ported yet.
+package's.  `resample="bootstrap_sites"` draws multinomial column
+counts instead of gene halves (the classic bootstrap as a reweighting),
+and `method="nj"` builds each replicate's plain NJ tree on the serial
+path, as the JAX package does.  Checkpoint and deadline resume are not
+ported yet (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.models.concat import ConcatenatedAlignment
 from pepr_tpu_torch.models.treebuild import (_nni_candidate, _nni_moves,
                                              _score_topologies, ml_tree,
-                                             nj_start_tree)
+                                             nj_start_tree, nj_tree)
 from pepr_tpu_torch.ops.likelihood import (TreeArrays, WagModel,
                                            arrays_to_tree, model_tensors,
                                            tree_to_arrays)
@@ -59,14 +63,29 @@ def bootstrap_weights(length: int, rep_idx: int, seed: int) -> np.ndarray:
     return counts.astype(np.float32)
 
 
+def replicate_weights(cat: ConcatenatedAlignment, rep_idx: int, seed: int,
+                      fraction: float = 0.5,
+                      resample: str = "jackknife_genes") -> np.ndarray:
+    """(L,) float32 site weights of one replicate: its gene-wise
+    jackknife mask, or its multinomial column counts for
+    `resample="bootstrap_sites"`."""
+    if resample == "bootstrap_sites":
+        return bootstrap_weights(cat.length, rep_idx, seed)
+    return jackknife_mask(cat, rep_idx, seed, fraction)
+
+
 def support_tree_single(cat: ConcatenatedAlignment, rep_idx: int,
                         seed: int, *, model: WagModel | None = None,
-                        fraction: float = 0.5, nni_rounds: int = 2,
-                        bl_steps: int = 60, device=None) -> Tree:
-    """One jackknife replicate by `ml_tree` on its mask: NNI only
-    (`spr_rounds=0`), like the batched path, with refits of
-    max(bl_steps // 2, 20) steps."""
-    w = jackknife_mask(cat, rep_idx, seed, fraction)
+                        method: str = "fast_ml", fraction: float = 0.5,
+                        nni_rounds: int = 2, bl_steps: int = 60,
+                        resample: str = "jackknife_genes",
+                        device=None) -> Tree:
+    """One replicate on its weights (`resample`): the plain NJ tree for
+    `method="nj"`, else `ml_tree` with NNI only (`spr_rounds=0`), like
+    the batched path, with refits of max(bl_steps // 2, 20) steps."""
+    w = replicate_weights(cat, rep_idx, seed, fraction, resample)
+    if method == "nj":
+        return nj_tree(cat.mat, cat.taxa, site_weights=w, device=device)
     tree, _ = ml_tree(cat.mat, cat.taxa, model, site_weights=w,
                       nni_rounds=nni_rounds, bl_steps=bl_steps,
                       bl_refine_steps=max(bl_steps // 2, 20),
@@ -77,30 +96,31 @@ def support_tree_single(cat: ConcatenatedAlignment, rep_idx: int,
 def support_trees(cat: ConcatenatedAlignment, reps: int, seed: int, *,
                   model: WagModel | None = None, method: str = "fast_ml",
                   fraction: float = 0.5, nni_rounds: int = 2,
-                  bl_steps: int = 60, device=None) -> list[Tree]:
-    """Build `reps` jackknife support trees (`ml` and `fast_ml`): the
-    batched replicate fan-out for `reps` > 1, `support_tree_single` for
-    one replicate, as in the JAX package.  Not ported yet: the `nj`
-    method and bootstrap resampling as an option."""
-    if method not in ("ml", "fast_ml"):
-        raise ValueError(f"support method {method!r} is not ported yet "
-                         "(ml and fast_ml are)")
+                  bl_steps: int = 60, resample: str = "jackknife_genes",
+                  device=None) -> list[Tree]:
+    """Build `reps` support trees: the batched replicate fan-out for
+    `ml` and `fast_ml` with `reps` > 1, else `support_tree_single` one
+    replicate at a time (every `nj` replicate), as in the JAX
+    package."""
     if model is None:
         model = WagModel.create()
-    if reps == 1:
-        return [support_tree_single(cat, 0, seed, model=model,
-                                    fraction=fraction,
-                                    nni_rounds=nni_rounds,
-                                    bl_steps=bl_steps, device=device)]
-    return support_trees_batched(cat, reps, seed, model=model,
-                                 fraction=fraction, nni_rounds=nni_rounds,
-                                 bl_steps=bl_steps, device=device)
+    if method in ("ml", "fast_ml") and reps > 1:
+        return support_trees_batched(
+            cat, reps, seed, model=model, fraction=fraction,
+            nni_rounds=nni_rounds, bl_steps=bl_steps, resample=resample,
+            device=device)
+    return [support_tree_single(cat, r, seed, model=model, method=method,
+                                fraction=fraction, nni_rounds=nni_rounds,
+                                bl_steps=bl_steps, resample=resample,
+                                device=device)
+            for r in range(reps)]
 
 
 def support_trees_batched(cat: ConcatenatedAlignment, reps: int,
                           seed: int, *, model: WagModel | None = None,
                           fraction: float = 0.5, nni_rounds: int = 2,
                           bl_steps: int = 60,
+                          resample: str = "jackknife_genes",
                           device=None) -> list[Tree]:
     """All replicates at once: per-replicate NJ starts, joint BL-opt,
     then NNI rounds until no replicate improves (FastTree-style cap of
@@ -108,7 +128,8 @@ def support_trees_batched(cat: ConcatenatedAlignment, reps: int,
     dev = resolve_device(device)
     if model is None:
         model = WagModel.create()
-    masks = jackknife_gene_masks(cat, reps, seed, fraction)
+    masks = np.stack([replicate_weights(cat, r, seed, fraction, resample)
+                      for r in range(reps)])
     arrs = [tree_to_arrays(nj_start_tree(cat.mat, cat.taxa, masks[r],
                                          device=dev), cat.taxa)
             for r in range(reps)]

@@ -7,10 +7,12 @@ differentiable pruning kernels; hill-climbing NNI rounds score every
 candidate topology of a round in one batched kernel call, and a batched
 SPR sweep tries to escape when NNI converges.
 
-The move generators are numpy and copied from the JAX package.  Not
-ported yet: checkpoint/deadline resume (`store`, `deadline`), the
-constraint tree, `max_candidates`, `nj_tree`, `parsimony_tree` and
-`evaluate_substitution_models`.
+Beside ML: the plain NJ tree (`nj_tree`), the Fitch parsimony search
+(`parsimony_tree`, with ML branch lengths for `parsimony_bl`), matrix
+evaluation (`evaluate_substitution_models`), and `ml_tree`'s constraint
+tree and candidate cap.  The move generators are numpy and copied from
+the JAX package.  Not ported yet: checkpoint/deadline resume (`store`,
+`deadline`; ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -21,12 +23,17 @@ import numpy as np
 import torch
 
 from pepr_tpu_torch.alphabet import N_AA
+from pepr_tpu_torch.data.protein_models import model_names
 from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.ops.likelihood import (TreeArrays, WagModel,
                                            arrays_to_tree, loglik,
                                            loglik_weighted, model_tensors,
                                            tree_to_arrays)
+from pepr_tpu_torch.ops.parsimony import fitch_score_topologies
 from pepr_tpu_torch.tree.basic import Tree
+from pepr_tpu_torch.tree.bipartition import (bipartitions, canonical,
+                                             compatible, node_leafsets,
+                                             taxon_index)
 from pepr_tpu_torch.tree.nj import neighbor_joining
 
 # Adam on softplus-parameterized branch lengths, optax.adam(0.03)
@@ -38,6 +45,9 @@ ADAM_EPS = 1e-8
 # Candidate topologies scored per kernel call (bounds the batch's
 # transition matrices and output; the kernel's scratch is per block).
 SCORE_BATCH = 512
+# Candidate topologies per Fitch call: each holds (nodes, L) int32 state
+# sets, 27 MB at 53 taxa and 64,433 columns.
+FITCH_BATCH = 64
 
 
 # -- distances -----------------------------------------------------------------
@@ -326,6 +336,50 @@ def _remap_blen(children_old, children_new, blen, n_leaves):
     return blen_new
 
 
+def _children_bipartitions(children: np.ndarray, n_leaves: int,
+                           full: int) -> set[int]:
+    """Canonical internal-edge bipartitions of a kernel children array."""
+    n_int = children.shape[0]
+    masks: dict[int, int] = {}
+    out: set[int] = set()
+    for k in range(n_int):
+        m = 0
+        for c in children[k]:
+            if c < 0:
+                continue
+            m |= masks[int(c)] if c >= n_leaves else (1 << int(c))
+        masks[n_leaves + k] = m
+        size = bin(m).count("1")
+        if 1 < size < n_leaves - 1 and k < n_int - 1:
+            out.add(canonical(m, full))
+    return out
+
+
+def _violates_constraint(children: np.ndarray, n_leaves: int,
+                         constraint_bips: set[int], full: int) -> bool:
+    for b in _children_bipartitions(children, n_leaves, full):
+        for c in constraint_bips:
+            if not compatible(b, c, full):
+                return True
+    return False
+
+
+def fasttree_constraint_matrix(tree: Tree, taxa: list[str]) -> str:
+    """Presence/absence constraint matrix from a tree, FastTree's
+    constraint-file format (FastTreeRunner.getFastTreeConstraintsForTree,
+    FastTreeRunner.java:243-273): one fasta row per taxon (sorted), one
+    0/1 column per tree node marking descendant membership."""
+    names = sorted(taxa)
+    idx = taxon_index(names)
+    masks = node_leafsets(tree, idx)
+    lines = []
+    for t in names:
+        bit = 1 << idx[t]
+        row = "".join("1" if m & bit else "0" for m in masks)
+        lines.append(f">{t}\n{row}")
+    return "\n".join(lines) + "\n"
+
+
 # -- batched scoring -----------------------------------------------------------
 
 def _score_topologies(codes: torch.Tensor, children_batch, blen_batch,
@@ -353,12 +407,19 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
             *, site_weights: np.ndarray | None = None,
             start: Tree | None = None, nni_rounds: int = 8,
             bl_steps: int = 150, bl_refine_steps: int = 60,
-            spr_rounds: int = 2, device=None) -> tuple[Tree, float]:
+            spr_rounds: int = 2, constraint: Tree | None = None,
+            max_candidates: int | None = None,
+            device=None) -> tuple[Tree, float]:
     """Full ML pipeline: NJ start -> BL opt -> NNI hill climbing with
     batched SPR escapes.  Each NNI round scores the full neighborhood
-    and accepts every improving move whose touched nodes are disjoint
-    from better moves already accepted; when NNI converges a batched SPR
-    sweep tries to escape, and an accepted SPR re-enters NNI.
+    (truncated to its first `max_candidates` moves if that is set, with
+    a log line) and accepts every improving move whose touched nodes are
+    disjoint from better moves already accepted; when NNI converges a
+    batched SPR sweep tries to escape, and an accepted SPR re-enters NNI.
+
+    With `constraint` (FastTreeRunner.java:243-273's constraint-file
+    role), rearrangements introducing a bipartition incompatible with
+    the constraint tree are rejected.
 
     Returns (tree with optimized branch lengths, final log-likelihood).
     """
@@ -387,6 +448,20 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
     codes_d = torch.as_tensor(codes, device=dev)
     w_d = torch.as_tensor(w, device=dev)
 
+    constraint_bips: set[int] | None = None
+    full_mask = (1 << n_leaves) - 1
+    if constraint is not None:
+        constraint_bips = set(bipartitions(constraint,
+                                           taxon_index(list(taxa))))
+        if _violates_constraint(children, n_leaves, constraint_bips,
+                                full_mask):
+            log.info("ml_tree: starting topology violates the "
+                     "constraint tree; search may not recover")
+
+    def _allowed(cand: np.ndarray) -> bool:
+        return constraint_bips is None or not _violates_constraint(
+            cand, n_leaves, constraint_bips, full_mask)
+
     def reopt(new_children, new_blen, steps):
         nonlocal children, arr, ll
         children = new_children
@@ -401,12 +476,23 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
     while rounds_done < nni_rounds:
         rounds_done += 1
         moves = _nni_moves(children, n_leaves)
+        if max_candidates is not None and len(moves) > max_candidates:
+            log.info("ml_tree: truncating NNI neighborhood %d -> %d "
+                     "(max_candidates)", len(moves), max_candidates)
+            moves = moves[:max_candidates]
         if not moves:
             break
         cands = [_nni_candidate(children, arr.blen, n_leaves, [m])
                  for m in moves]
         fixed = [c for c, _ in cands]
         blens = [b for _, b in cands]
+        if constraint_bips is not None:
+            keep = [i for i, f in enumerate(fixed) if _allowed(f)]
+            moves = [moves[i] for i in keep]
+            fixed = [fixed[i] for i in keep]
+            blens = [blens[i] for i in keep]
+            if not moves:
+                break
         scores = _score_topologies(codes_d, fixed, blens, margs, w_d)
         improving = np.nonzero(scores > ll + 1e-4)[0]
         log.info("ml_tree: NNI round %d scored %d candidates, %d improving",
@@ -417,6 +503,9 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
                 break
             spr_left -= 1
             spr = _spr_candidates(children, n_leaves)
+            if constraint_bips is not None:
+                spr = [c for c in spr
+                       if _allowed(_postorder_fix(c, n_leaves))]
             if not spr:
                 break
             spr_fixed = [_postorder_fix(c, n_leaves) for c in spr]
@@ -446,6 +535,11 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
         prev_children, prev_blen, prev_ll = children, arr.blen.copy(), ll
         new_children, new_blen = _nni_candidate(children, arr.blen,
                                                 n_leaves, taken)
+        if len(taken) > 1 and not _allowed(new_children):
+            # combined moves (each allowed alone) can still violate the
+            # constraint together: take the best single move
+            best = int(improving[np.argmax(scores[improving])])
+            new_children, new_blen = fixed[best], blens[best]
         reopt(new_children, new_blen, bl_refine_steps)
         if len(taken) > 1 and ll < prev_ll:
             # combined moves (scored individually) regressed — fall back
@@ -497,3 +591,119 @@ def estimate_gamma_alpha(mat: np.ndarray, taxa: list[str], tree: Tree, *,
             x1 = b - phi * (b - a)
             f1 = ll(x1)
     return float((a + b) / 2)
+
+
+def nj_tree(mat: np.ndarray, taxa: list[str],
+            site_weights: np.ndarray | None = None, device=None) -> Tree:
+    """Plain NJ tree (the reference's `-nj` fast path,
+    PhylogenomicPipeline2.java:1279-1293)."""
+    return nj_start_tree(mat, taxa, site_weights, device=device)
+
+
+def empirical_aa_freqs(mat: np.ndarray) -> np.ndarray:
+    """Observed residue frequencies (the RAxML '...F' convention)."""
+    counts = np.bincount(
+        np.asarray(mat[mat < N_AA], np.int64), minlength=N_AA
+    ).astype(np.float64)
+    counts += 1.0
+    return counts / counts.sum()
+
+
+def evaluate_substitution_models(mat: np.ndarray, taxa: list[str],
+                                 names: list[str] | None = None, *,
+                                 alpha: float = 1.0, bl_steps: int = 120,
+                                 device=None
+                                 ) -> tuple[str, dict[str, float]]:
+    """Matrix evaluation (PhylogenomicPipeline2.java:252-295,
+    1390-1451): build one parsimony tree, then score it under every
+    candidate substitution model (branch lengths re-optimized per
+    model, the `-f e` role) and return (best model name, scores)."""
+    import logging
+
+    log = logging.getLogger("pepr_tpu_torch")
+    dev = resolve_device(device)
+    if names is None:
+        names = model_names()
+    tree, _ = parsimony_tree(mat, taxa, nni_rounds=4, device=dev)
+    arr = tree_to_arrays(tree, taxa)
+    emp = empirical_aa_freqs(mat)
+    scores: dict[str, float] = {}
+    for name in names:
+        model = WagModel.named(name, alpha=alpha, empirical_freqs=emp)
+        _, ll = optimize_branch_lengths(np.asarray(mat, np.int8), arr,
+                                        model, steps=bl_steps, device=dev)
+        scores[name] = ll
+        log.info("matrix evaluation: %s LL=%.2f", name, ll)
+    best = max(scores, key=scores.get)
+    log.info("matrix evaluation: preferred matrix is %s", best)
+    return best, scores
+
+
+def parsimony_tree(mat: np.ndarray, taxa: list[str], *,
+                   site_weights: np.ndarray | None = None,
+                   branch_lengths: bool = False,
+                   model: WagModel | None = None,
+                   nni_rounds: int = 8, bl_steps: int = 150,
+                   max_candidates: int | None = None,
+                   device=None) -> tuple[Tree, float]:
+    """Parsimony topology search (the reference's `parsimony` method,
+    RAxMLRunner.java:134-140): NJ start + NNI hill climbing under the
+    Fitch score, each round's candidates scored in batches of
+    FITCH_BATCH.  With `branch_lengths`, ML branch lengths are fitted on
+    the final topology (the `parsimony_bl` two-phase,
+    RAxMLRunner.java:215-280, gradient opt instead of `-f e`).  Without
+    it the tree keeps the NJ start's lengths by node id, as the JAX
+    package's does.
+
+    Returns (tree, parsimony score)."""
+    import logging
+
+    log = logging.getLogger("pepr_tpu_torch")
+    dev = resolve_device(device)
+    start = nj_start_tree(mat, taxa, site_weights, device=dev)
+    arr = tree_to_arrays(start, taxa)
+    codes = np.asarray(mat, np.int8)
+    n_leaves = len(taxa)
+    L = codes.shape[1]
+    w = np.ones(L, np.float32) if site_weights is None else \
+        np.asarray(site_weights, np.float32)
+    codes_d = torch.as_tensor(codes, device=dev)
+    w_d = torch.as_tensor(w, device=dev)
+
+    def score(cands: list[np.ndarray]) -> np.ndarray:
+        out = []
+        with torch.no_grad():
+            for c0 in range(0, len(cands), FITCH_BATCH):
+                ch = torch.as_tensor(np.stack(cands[c0:c0 + FITCH_BATCH]),
+                                     device=dev)
+                out.append(fitch_score_topologies(codes_d, ch, w_d).cpu())
+        return torch.cat(out).numpy()
+
+    children = arr.children.copy()
+    best_score = float(score([children])[0])
+    rounds = 0
+    for _ in range(nni_rounds):
+        cands = _nni_candidates(children, n_leaves)
+        if not cands:
+            break
+        cands = [_postorder_fix(c, n_leaves)
+                 for c in cands[:max_candidates]]
+        scores = score(cands)
+        rounds += 1
+        best = int(np.argmin(scores))
+        if scores[best] >= best_score:
+            break
+        best_score = float(scores[best])
+        children = cands[best]
+    log.info("parsimony_tree: score %.0f after %d NNI rounds", best_score,
+             rounds)
+
+    arr = TreeArrays(children, arr.blen, arr.node_of_tree_node, taxa)
+    if branch_lengths:
+        if model is None:
+            model = WagModel.create()
+        blen, _ = optimize_branch_lengths(codes, arr, model,
+                                          site_weights=w, steps=bl_steps,
+                                          device=dev)
+        arr.blen[:] = blen
+    return arrays_to_tree(arr), best_score

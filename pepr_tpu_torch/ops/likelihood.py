@@ -1,8 +1,9 @@
-"""Felsenstein pruning log-likelihood under WAG+Gamma (PyTorch port of
+"""Felsenstein pruning log-likelihood under WAG+Gamma, any registered
+protein model or nucleotide GTR (PyTorch port of
 `pepr_tpu/ops/likelihood.py`).
 
 Per-edge transition matrices P(r_c t) = U exp(L r_c t) U^-1 come from
-the WAG eigensystem by a plain einsum (autograd carries branch-length
+the model's eigensystem by a plain einsum (autograd carries branch-length
 gradients through it); the per-site log-likelihood of a batch of trees
 goes through `ops.pruning.site_ll` — the hand-written forward and
 gradient kernels on the card, their plain versions on the CPU.
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from pepr_tpu_torch.alphabet import N_AA
+from pepr_tpu_torch.data.protein_models import eigensystem, resolve_model
 from pepr_tpu_torch.data.wag import WAG_FREQS, wag_eigensystem
 from pepr_tpu_torch.ops.gamma import discrete_gamma_rates
 from pepr_tpu_torch.ops.pruning import site_ll
@@ -50,6 +52,55 @@ class WagModel:
         eig, u, u_inv = wag_eigensystem()
         return cls(eig.astype(np.float32), u.astype(np.float32),
                    u_inv.astype(np.float32), WAG_FREQS.astype(np.float32),
+                   discrete_gamma_rates(alpha, n_cats).astype(np.float32))
+
+    @classmethod
+    def gtr_nt(cls, freqs: np.ndarray | None = None,
+               rates: np.ndarray | None = None, alpha: float = 1.0,
+               n_cats: int = 4) -> "WagModel":
+        """Nucleotide GTR+Gamma riding the 20-state engine (FastTree
+        `-gtr -nt` role, FastTreeRunner.java:67-77): the 4x4 GTR block
+        sits in states 0-3 (ACGT), the 16 dead states get frequency
+        1e-10 so tip masking keeps their partials exactly zero.
+
+        freqs: (4,) base frequencies (default uniform).
+        rates: (4, 4) symmetric exchangeabilities or a length-6 vector
+        (AC, AG, AT, CG, CT, GT); default all-equal.
+        """
+        f4 = np.full(4, 0.25) if freqs is None \
+            else np.asarray(freqs, np.float64)
+        f4 = f4 / f4.sum()
+        if rates is None:
+            r4 = np.ones((4, 4))
+        else:
+            rates = np.asarray(rates, np.float64)
+            if rates.shape == (6,):
+                r4 = np.zeros((4, 4))
+                r4[np.triu_indices(4, 1)] = rates
+                r4 = r4 + r4.T
+            else:
+                r4 = rates
+        np.fill_diagonal(r4, 0.0)
+        big_r = np.zeros((N_AA, N_AA))
+        big_r[:4, :4] = r4
+        pi = np.full(N_AA, 1e-10)
+        pi[:4] = f4 * (1.0 - 16e-10)
+        eig, u, u_inv = eigensystem(big_r, pi)
+        return cls(eig.astype(np.float32), u.astype(np.float32),
+                   u_inv.astype(np.float32), pi.astype(np.float32),
+                   discrete_gamma_rates(alpha, n_cats).astype(np.float32))
+
+    @classmethod
+    def named(cls, name: str, alpha: float = 1.0, n_cats: int = 4,
+              empirical_freqs: np.ndarray | None = None) -> "WagModel":
+        """Any registered substitution model (data/protein_models.py),
+        '...F' variants taking the alignment's empirical frequencies —
+        matrix evaluation's constructor
+        (PhylogenomicPipeline2.java:1390-1451 role)."""
+        rates, pi = resolve_model(name, empirical_freqs)
+        eig, u, u_inv = eigensystem(rates, pi)
+        return cls(eig.astype(np.float32), u.astype(np.float32),
+                   u_inv.astype(np.float32), pi.astype(np.float32),
                    discrete_gamma_rates(alpha, n_cats).astype(np.float32))
 
 

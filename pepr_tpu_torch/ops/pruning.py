@@ -488,6 +488,9 @@ def site_ll_reference(codes, children, pmats, pi) -> torch.Tensor:
     out = []
     for b in range(B):
         tips = tip_partials(codes if codes.dim() == 2 else codes[b], pi)
+        # one view per edge: their gradients are stacked once, where an
+        # index per edge would add a zeroed copy of all of `pmats` each
+        edges = pmats[b].unbind(1)
         parts: dict[int, torch.Tensor] = {}
         logscale = torch.zeros(tips.shape[1], dtype=pmats.dtype,
                                device=pmats.device)
@@ -496,7 +499,7 @@ def site_ll_reference(codes, children, pmats, pi) -> torch.Tensor:
             for v in row:
                 if v < 0:
                     continue
-                p = pmats[b, :, v]  # (C, 20, 20)
+                p = edges[v]  # (C, 20, 20)
                 if v < n_leaves:
                     term = torch.einsum("cab,lb->cla", p, tips[v])
                 else:

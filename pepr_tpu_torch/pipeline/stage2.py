@@ -3,18 +3,19 @@
 
 The orchestration replacing PhylogenomicPipeline2
 (PhylogenomicPipeline2.java:102-427): filter sets by taxa counts,
-align (batched progressive MSA with a refinement pass), trim (Gblocks
-semantics), concatenate over the taxon union, estimate the Gamma shape,
-build the full ML tree and gene-wise jackknife support trees, decorate
-supports.  `run_stage2` starts from homolog groups; `run_stage2_aligned`
-from aligned families.  Both end in one tail, `_tree_stage`.
+align (batched progressive MSA with a refinement pass; blastn-style
+scores for the nucleotide alphabet), trim (Gblocks semantics), drop the
+least congruent genes (optional), concatenate over the taxon union,
+estimate the Gamma shape, pick the substitution model (matrix
+evaluation, optional; GTR for nucleotides), build the full tree (`ml`,
+`fast_ml`, `nj`, `parsimony`, `parsimony_bl`) and the support trees,
+decorate supports.  `run_stage2` starts from homolog groups;
+`run_stage2_aligned` from aligned families.  Both end in one tail,
+`_tree_stage`.
 
-Ported: the `ml` and `fast_ml` full-tree methods under WAG+Gamma, with
-or without the alpha estimate, on the amino-acid alphabet.  Not ported
-yet (each raises NotImplementedError naming its ROADMAP Queue 1 item):
-the congruence filter, matrix evaluation, the nucleotide model and the
-`nj`/`parsimony` full-tree methods (item 8); nor checkpoint/deadline
-resume (item 14).
+Every `Stage2Config` value of the JAX package runs here.  Not ported
+yet: checkpoint/deadline resume (ROADMAP Queue 1 item 14), which
+`run_stage2` takes no arguments for.
 """
 
 from __future__ import annotations
@@ -23,14 +24,22 @@ import logging
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
+
+from pepr_tpu_torch.alphabet import N_NT
+from pepr_tpu_torch.data.nt_scores import NT_GAP_EXTEND, NT_GAP_OPEN, nt_core
 from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.io.fasta import SequenceSet
 from pepr_tpu_torch.models.concat import ConcatenatedAlignment, concatenate
+from pepr_tpu_torch.models.congruence import filter_congruent
 from pepr_tpu_torch.models.msa import (Alignment, align_families_chunked,
                                        refine_families)
 from pepr_tpu_torch.models.support import decorated_tree, support_trees
-from pepr_tpu_torch.models.treebuild import (estimate_gamma_alpha, ml_tree,
-                                             nj_start_tree)
+from pepr_tpu_torch.models.treebuild import (empirical_aa_freqs,
+                                             estimate_gamma_alpha,
+                                             evaluate_substitution_models,
+                                             ml_tree, nj_start_tree, nj_tree,
+                                             parsimony_tree)
 from pepr_tpu_torch.ops.likelihood import WagModel
 from pepr_tpu_torch.ops.profile_align import release_plans
 from pepr_tpu_torch.ops.trim import gblocks_mask
@@ -43,8 +52,7 @@ log = logging.getLogger("pepr_tpu_torch")
 @dataclass
 class Stage2Config:
     """Every field of the JAX package's `Stage2Config`, under the same
-    names and defaults; `check_ported` refuses the values whose code is
-    not ported yet."""
+    names and defaults."""
     min_taxa: int = 4
     max_taxa: int = 10 ** 9
     target_sets: int | None = None  # cap on gene families (largest kept)
@@ -76,24 +84,13 @@ class Stage2Config:
     alphabet: str = field(default="aa", repr=False)
 
 
-def check_ported(cfg: Stage2Config) -> None:
-    """Raise NotImplementedError for an option whose code is not ported
-    yet, naming its ROADMAP Queue 1 item."""
-    if cfg.congruence_filter:
-        raise NotImplementedError(
-            "congruence_filter is not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.matrix_evaluation:
-        raise NotImplementedError(
-            "matrix_evaluation is not ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.alphabet != "aa":
-        raise NotImplementedError(
-            f"alphabet {cfg.alphabet!r} (the GTR nucleotide model) is not "
-            "ported yet (ROADMAP Queue 1 item 8)")
-    if cfg.full_tree_method in ("nj", "parsimony", "parsimony_bl"):
-        raise NotImplementedError(
-            f"full_tree_method {cfg.full_tree_method!r} is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
-    if cfg.full_tree_method not in ("ml", "fast_ml"):
+FULL_TREE_METHODS = ("ml", "fast_ml", "nj", "parsimony", "parsimony_bl")
+
+
+def check_config(cfg: Stage2Config) -> None:
+    """Raise ValueError for an unknown full-tree method before any work
+    is done."""
+    if cfg.full_tree_method not in FULL_TREE_METHODS:
         raise ValueError(f"unknown full_tree_method {cfg.full_tree_method!r}")
 
 
@@ -144,7 +141,7 @@ def run_stage2(sets: list[SequenceSet], cfg: Stage2Config | None = None,
     """Stage 2 from homolog groups: filter, align, refine, trim, then
     the tree stage, on the card unless `device="cpu"`."""
     cfg = cfg or Stage2Config()
-    check_ported(cfg)
+    check_config(cfg)
     dev = resolve_device(device)
     timings: dict = {}
 
@@ -152,10 +149,15 @@ def run_stage2(sets: list[SequenceSet], cfg: Stage2Config | None = None,
     kept = filter_sets(sets, cfg)
     if not kept:
         raise ValueError("no homolog groups survive the taxa filters")
-    mats = align_families_chunked([s.seqs for s in kept], device=dev)
+    nt_kw = {}
+    if cfg.alphabet == "nt":
+        nt_kw = dict(core=nt_core(), gap_open=float(NT_GAP_OPEN),
+                     gap_extend=float(NT_GAP_EXTEND))
+    mats = align_families_chunked([s.seqs for s in kept], device=dev,
+                                  **nt_kw)
     if cfg.msa_refine_iters > 0:
         mats, n_imp = refine_families(mats, iters=cfg.msa_refine_iters,
-                                      device=dev)
+                                      device=dev, **nt_kw)
         log.info("stage2: MSA refinement improved %d/%d families", n_imp,
                  len(mats))
     release_plans()  # the DP's cached plans; the tree stage needs the room
@@ -183,14 +185,40 @@ def run_stage2_aligned(alignments: list[Alignment],
     """Stage 2 from aligned (trimmed) families to the support-decorated
     ML tree, on the card unless `device="cpu"`."""
     cfg = cfg or Stage2Config()
-    check_ported(cfg)
+    check_config(cfg)
     return _tree_stage(alignments, cfg, resolve_device(device), {})
+
+
+def substitution_model(model_name: str, alpha: float,
+                       mat: np.ndarray) -> WagModel:
+    """The tree stage's model: GTR+Gamma with the alignment's base
+    frequencies for "GTR" (FastTree -gtr -nt role,
+    FastTreeRunner.java:67-77), WAG+Gamma, or a registered model with
+    the alignment's residue frequencies for its '...F' form."""
+    if model_name == "GTR":
+        counts = np.bincount(mat[mat < N_NT].ravel(),
+                             minlength=N_NT).astype(np.float64)
+        return WagModel.gtr_nt(freqs=counts / max(counts.sum(), 1.0),
+                               alpha=alpha)
+    if model_name == "WAG":
+        return WagModel.create(alpha=alpha)
+    return WagModel.named(model_name, alpha=alpha,
+                          empirical_freqs=empirical_aa_freqs(mat))
 
 
 def _tree_stage(alignments: list[Alignment], cfg: Stage2Config, dev,
                 timings: dict) -> Stage2Result:
-    """Concatenation -> Gamma shape -> full ML tree -> jackknife support
-    trees -> support decoration (the tail of the JAX `run_stage2`)."""
+    """Congruence filter -> concatenation -> Gamma shape -> matrix
+    evaluation -> full tree -> support trees -> support decoration (the
+    tail of the JAX `run_stage2`)."""
+    if cfg.congruence_filter:
+        t0 = time.time()
+        alignments = filter_congruent(alignments,
+                                      drop_fraction=cfg.congruence_drop)
+        timings["congruence_filter"] = time.time() - t0
+        log.info("stage2: congruence filter kept %d families (%.1fs)",
+                 len(alignments), timings["congruence_filter"])
+
     t0 = time.time()
     cat = concatenate(alignments)
     timings["concat"] = time.time() - t0
@@ -198,23 +226,47 @@ def _tree_stage(alignments: list[Alignment], cfg: Stage2Config, dev,
              cat.length)
 
     alpha = cfg.gamma_alpha
-    if cfg.estimate_alpha:
+    # under WAG for the nucleotide alphabet too, as the JAX package does
+    if cfg.estimate_alpha and cfg.full_tree_method != "nj":
         t0 = time.time()
         start = nj_start_tree(cat.mat, cat.taxa, device=dev)
         alpha = estimate_gamma_alpha(cat.mat, cat.taxa, start, device=dev)
         timings["alpha_estimate"] = time.time() - t0
         log.info("stage2: gamma alpha = %.3f (%.1fs)", alpha,
                  timings["alpha_estimate"])
-    model = WagModel.create(alpha=alpha)
+
+    model_name = "WAG"
+    if cfg.matrix_evaluation:
+        t0 = time.time()
+        names = cfg.matrix_evaluation \
+            if isinstance(cfg.matrix_evaluation, list) else None
+        model_name, _ = evaluate_substitution_models(
+            cat.mat, cat.taxa, names, alpha=alpha, device=dev)
+        timings["matrix_evaluation"] = time.time() - t0
+        log.info("stage2: matrix evaluation chose %s (%.1fs)", model_name,
+                 timings["matrix_evaluation"])
+
+    if cfg.alphabet == "nt":
+        model_name = "GTR"
+    model = substitution_model(model_name, alpha, cat.mat)
 
     t0 = time.time()
-    fast = cfg.full_tree_method == "fast_ml"
-    full, ll = ml_tree(
-        cat.mat, cat.taxa, model,
-        nni_rounds=(2 if fast else cfg.nni_rounds),
-        bl_steps=(60 if fast else cfg.bl_steps),
-        bl_refine_steps=(30 if fast else max(cfg.bl_steps // 3, 40)),
-        spr_rounds=(1 if fast else 2), device=dev)
+    ll = None
+    if cfg.full_tree_method == "nj":
+        full = nj_tree(cat.mat, cat.taxa, device=dev)
+    elif cfg.full_tree_method in ("parsimony", "parsimony_bl"):
+        full, _ = parsimony_tree(
+            cat.mat, cat.taxa, model=model,
+            branch_lengths=cfg.full_tree_method == "parsimony_bl",
+            nni_rounds=cfg.nni_rounds, bl_steps=cfg.bl_steps, device=dev)
+    else:
+        fast = cfg.full_tree_method == "fast_ml"
+        full, ll = ml_tree(
+            cat.mat, cat.taxa, model,
+            nni_rounds=(2 if fast else cfg.nni_rounds),
+            bl_steps=(60 if fast else cfg.bl_steps),
+            bl_refine_steps=(30 if fast else max(cfg.bl_steps // 3, 40)),
+            spr_rounds=(1 if fast else 2), device=dev)
     full = parse_newick(to_newick(full))  # the Newick round trip, as
     # the JAX package keeps the full tree
     timings["full_tree"] = time.time() - t0
@@ -232,5 +284,5 @@ def _tree_stage(alignments: list[Alignment], cfg: Stage2Config, dev,
              timings["support_trees"])
 
     dec = decorated_tree(full, reps)
-    return Stage2Result(dec, full, reps, cat, alignments, ll, alpha, "WAG",
-                        timings)
+    return Stage2Result(dec, full, reps, cat, alignments, ll, alpha,
+                        model_name, timings)

@@ -2,7 +2,10 @@
 package on the same inputs, on the CPU: concatenation and masks
 (identical), bootstrap weights (identical), replicate branch lengths
 (rel 1e-3) and LLs (rel 1e-5), decorated supports (identical) and the
-batched support trees (identical topologies)."""
+batched support trees (identical topologies); bootstrap column counts
+carried through compaction unchanged; `method="nj"` (serial, jackknife
+or bootstrap) and `resample="bootstrap_sites"` under fast_ml (batched)
+with each replicate's topology equal to JAX's."""
 
 import numpy as np
 import pytest
@@ -144,3 +147,40 @@ def test_single_replicate_matches_jax_serial_path(seed, monkeypatch):
     g_arr = tlik.tree_to_arrays(got, list(t.taxa))
     np.testing.assert_array_equal(g_arr.children, w_arr.children)
     np.testing.assert_allclose(g_arr.blen, w_arr.blen, rtol=0, atol=1e-5)
+
+
+def test_compaction_keeps_bootstrap_counts(families):
+    """Bootstrap weights are integer column counts up to ~6 with ~63% of
+    the columns live: they are compacted, and every live column keeps
+    its count."""
+    _, _, t = families
+    w = np.stack([tsup.replicate_weights(t, r, 9, resample="bootstrap_sites")
+                  for r in range(4)])
+    assert (w == np.round(w)).all() and w.max() >= 3
+    assert ((w > 0).mean(axis=1) < 0.75).all()
+    codes_sel, w_sel = compact_codes(t.mat, w)
+    for r in range(4):
+        live = np.nonzero(w[r])[0]
+        np.testing.assert_array_equal(w_sel[r, :len(live)], w[r, live])
+        np.testing.assert_array_equal(codes_sel[r, :, :len(live)],
+                                      t.mat[:, live])
+        assert (w_sel[r, len(live):] == 0).all()
+
+
+@pytest.mark.parametrize("method,resample,reps", [
+    ("nj", "jackknife_genes", 4), ("nj", "bootstrap_sites", 4),
+    ("fast_ml", "bootstrap_sites", 3)])
+def test_support_methods_and_resampling_match_jax(families, method,
+                                                  resample, reps):
+    _, j, t = families
+    jm = jlik.WagModel.create(alpha=0.8)
+    want = jsup.support_trees(j, reps, 13, model=jm, method=method,
+                              resample=resample, bl_steps=30)
+    got = tsup.support_trees(t, reps, 13, model=_tmodel(jm), method=method,
+                             resample=resample, bl_steps=30, device="cpu")
+    assert len(got) == len(want) == reps
+    for a, b in zip(got, want):
+        assert rf_distance(a, parse_newick(jto_newick(b))) == 0
+        if method == "nj":
+            assert to_newick(a, lengths=False) == \
+                jto_newick(b, lengths=False)

@@ -2,7 +2,11 @@
 JAX package on the same inputs, on the CPU: Kimura distances (rel
 1e-6), NJ start topology (identical), Adam branch-length fitting after
 20 steps (blen rel 1e-3, LL rel 1e-5), the alpha estimate (1e-3), the
-numpy move generators (identical) and ml_tree (RF = 0, LL rel 1e-4)."""
+numpy move generators (identical) and ml_tree (RF = 0, LL rel 1e-4);
+the constraint tree (the FastTree constraint matrix byte for byte,
+the bipartition checks identical, a constrained ml_tree at RF 0 to
+JAX's with no bipartition incompatible with the constraint) and
+`max_candidates` (the same truncation and tree)."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,9 @@ from pepr_tpu.utils.simulate import simulate_alignment as jsimulate
 from pepr_tpu_torch.models import treebuild as ttb
 from pepr_tpu_torch.ops import likelihood as tlik
 from pepr_tpu_torch.tree import parse_newick, rf_distance, to_newick
+from pepr_tpu_torch.utils.simulate import random_tree
+from pepr_tpu_torch.tree.bipartition import (bipartitions, compatible,
+                                             taxon_index)
 
 torch.set_num_threads(2)
 
@@ -146,4 +153,83 @@ def test_ml_tree_matches_jax(eight_taxa):
                               start=parse_newick(start), device="cpu", **kw)
     assert rf_distance(got, _port_tree(want)) == 0
     assert rf_distance(got, _port_tree(true)) == jrf(want, true)
+    assert got_ll == pytest.approx(want_ll, rel=1e-4)
+
+
+def test_constraint_matrix_and_checks_identical(eight_taxa):
+    true, codes, taxa = eight_taxa
+    rng = np.random.default_rng(5)
+    for nwk in [jto_newick(true), "((A,B),(C,D),(E,F,G,H));",
+                to_newick(random_tree(taxa, rng))]:
+        assert ttb.fasttree_constraint_matrix(parse_newick(nwk), taxa) == \
+            jtb.fasttree_constraint_matrix(jparse(nwk), taxa)
+    n, full = len(taxa), (1 << len(taxa)) - 1
+    cons = set(bipartitions(parse_newick("((A,C),(B,D),(E,F,G,H));"),
+                            taxon_index(taxa)))
+    arrs = [jlik.tree_to_arrays(jtb.nj_start_tree(codes, taxa), taxa)] + [
+        jlik.tree_to_arrays(jparse(to_newick(random_tree(taxa, rng))), taxa)
+        for _ in range(6)] + [
+        jlik.tree_to_arrays(jparse("(((A,C),(B,D)),((E,F),(G,H)));"), taxa)]
+    seen = set()
+    for a in arrs:
+        got = ttb._children_bipartitions(a.children, n, full)
+        assert got == jtb._children_bipartitions(a.children, n, full)
+        v = ttb._violates_constraint(a.children, n, cons, full)
+        assert v == jtb._violates_constraint(a.children, n, cons, full)
+        seen.add(v)
+    assert seen == {True, False}
+
+
+def test_ml_tree_with_constraint_matches_jax():
+    """tests/test_nt_and_constraints.py's set-up: a constraint that
+    conflicts with the data's signal keeps both searches inside its
+    bipartitions, and they reach the same tree."""
+    rng = np.random.default_rng(17)
+    true = jparse("(((A:0.15,B:0.12):0.1,(C:0.1,D:0.14):0.12):0.06,"
+                  "(E:0.12,F:0.1):0.06);")
+    codes, taxa = jsimulate(true, 400, rng)
+    cons = "((A,C),(B,D),(E,F));"
+    kw = dict(nni_rounds=6, spr_rounds=1)
+    jm = jlik.WagModel.create()
+    want, want_ll = jtb.ml_tree(codes, taxa, jm, start=jparse(cons),
+                                constraint=jparse(cons), **kw)
+    got, got_ll = ttb.ml_tree(codes, taxa, _tmodel(jm),
+                              start=parse_newick(cons),
+                              constraint=parse_newick(cons), device="cpu",
+                              **kw)
+    assert rf_distance(got, _port_tree(want)) == 0
+    assert got_ll == pytest.approx(want_ll, rel=1e-4)
+    idx = taxon_index(taxa)
+    full = (1 << len(taxa)) - 1
+    for b in bipartitions(got, idx):
+        for c in bipartitions(parse_newick(cons), idx):
+            assert compatible(b, c, full)
+    # unconstrained, the search leaves the constraint
+    free, _ = ttb.ml_tree(codes, taxa, _tmodel(jm), start=parse_newick(cons),
+                          device="cpu", **kw)
+    assert rf_distance(free, _port_tree(true)) < rf_distance(got,
+                                                              _port_tree(true))
+
+
+def test_ml_tree_max_candidates_matches_jax(eight_taxa, caplog):
+    true, codes, taxa = eight_taxa
+    start = "(((A:0.1,E:0.1):0.1,(C:0.1,D:0.1):0.1):0.1," \
+            "((B:0.1,F:0.1):0.1,(G:0.1,H:0.1):0.1):0.1);"
+    kw = dict(nni_rounds=3, bl_steps=40, bl_refine_steps=20, spr_rounds=0,
+              max_candidates=7)
+    jm = jlik.WagModel.create(alpha=1.0)
+    with caplog.at_level("INFO"):
+        want, want_ll = jtb.ml_tree(codes, taxa, jm, start=jparse(start),
+                                    **kw)
+        n_jax = len([r for r in caplog.records
+                     if "truncating NNI neighborhood" in r.getMessage()])
+        got, got_ll = ttb.ml_tree(codes, taxa, _tmodel(jm),
+                                  start=parse_newick(start), device="cpu",
+                                  **kw)
+    msgs = [r.getMessage() for r in caplog.records
+            if "truncating NNI neighborhood" in r.getMessage()]
+    assert n_jax >= 1 and len(msgs) == 2 * n_jax
+    assert msgs[:n_jax] == msgs[n_jax:]
+    assert msgs[0].endswith("-> 7 (max_candidates)")
+    assert rf_distance(got, _port_tree(want)) == 0
     assert got_ll == pytest.approx(want_ll, rel=1e-4)

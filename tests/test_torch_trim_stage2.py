@@ -7,9 +7,11 @@ fixture of chip_smoke.py's small_align phase (`three_sequence_sets`:
 3-sequence families over 6 taxa, seeded deletions; `SMALL_S2`:
 min_taxa 3, fast_ml, 3 replicates, 2 NNI rounds) through both
 packages' `run_stage2`: identical trimmed alignments, the same topology
-(RF 0), LL within 1e-4 relative and identical supports.  Families of 3
-sequences keep every profile value at 0, 1/2 or 1, which the
-reference's bfloat16 profiles hold exactly.
+(RF 0), LL within 1e-4 relative and identical supports; and the same
+for each of the options ROADMAP item 8 ported (congruence filter,
+matrix evaluation, the nucleotide alphabet, the nj and parsimony
+methods).  Families of 3 sequences keep every profile value at 0, 1/2
+or 1, which the reference's bfloat16 profiles hold exactly.
 """
 
 import importlib.util
@@ -136,6 +138,25 @@ def test_run_stage2_tree_likelihood_and_supports(runs):
         jto_newick(want.tree, lengths=False)
 
 
+def same_stage2_result(got, want):
+    """The same families kept and model, RF 0 between the full trees, LL
+    within rel 1e-4 (or None on both sides) and the same decorated
+    Newick without lengths."""
+    assert [a.name for a in got.alignments] == \
+        [a.name for a in want.alignments]
+    assert got.concat.gene_names == want.concat.gene_names
+    assert got.model_name == want.model_name
+    assert rf_distance(got.full_tree,
+                       parse_newick(jto_newick(want.full_tree))) == 0
+    if want.log_likelihood is None:
+        assert got.log_likelihood is None
+    else:
+        assert got.log_likelihood == pytest.approx(want.log_likelihood,
+                                                   rel=1e-4)
+    assert to_newick(got.tree, lengths=False) == \
+        jto_newick(want.tree, lengths=False)
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(congruence_filter=True), "item 8"),
     (dict(matrix_evaluation=True), "item 8"),
@@ -145,13 +166,38 @@ def test_run_stage2_tree_likelihood_and_supports(runs):
     (dict(full_tree_method="parsimony"), "item 8"),
     (dict(full_tree_method="parsimony_bl"), "item 8"),
 ])
-def test_unported_options_raise(kw, item):
-    sets = [SequenceSet("g", [f"p{i} [T{i}]" for i in range(4)],
-                        [np.arange(10, dtype=np.int8)] * 4)]
-    with pytest.raises(NotImplementedError, match=item):
-        run_stage2(sets, Stage2Config(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        run_stage2_aligned([], Stage2Config(**kw), device="cpu")
+def test_unported_options_raise(smoke, kw, item):
+    """The seven options that raised NotImplementedError naming `item`
+    until ROADMAP item 8 ported them (the test keeps its name and
+    cases).  Each now runs through both packages' `run_stage2` on
+    seeded 3-sequence families (nucleotide ones for alphabet nt) and
+    gives the same result (`same_stage2_result`); ["WAG", "LG"] raises
+    the same KeyError in both, as LG is not registered."""
+    alphabet = kw.get("alphabet", "aa")
+    sets = smoke.three_sequence_sets(
+        np.random.default_rng(23 if alphabet == "aa" else 24),
+        alphabet=alphabet)
+    jsets = [JSet(s.name, s.titles, s.seqs) for s in sets]
+    cfg = dict(smoke.SMALL_S2, **kw)
+    if kw.get("matrix_evaluation") == ["WAG", "LG"]:
+        with pytest.raises(KeyError, match="'LG'") as want:
+            jrun(jsets, JConfig(**cfg))
+        with pytest.raises(KeyError, match="'LG'") as got:
+            run_stage2(sets, Stage2Config(**cfg), device="cpu")
+        assert str(got.value) == str(want.value)
+        assert item not in str(got.value)
+        return
+    want = jrun(jsets, JConfig(**cfg))
+    got = run_stage2(sets, Stage2Config(**cfg), device="cpu")
+    same_stage2_result(got, want)
+    if "full_tree_method" in kw and kw["full_tree_method"] != "parsimony_bl":
+        assert got.log_likelihood is None
+
+
+def test_unknown_full_tree_method_raises():
+    for run, arg in ((run_stage2, []), (run_stage2_aligned, [])):
+        with pytest.raises(ValueError, match="full_tree_method"):
+            run(arg, Stage2Config(full_tree_method="upgma"), device="cpu")
 
 
 def test_run_stage2_refuses_empty_input():
