@@ -133,7 +133,9 @@ Phases, each printing one JSON line with the elapsed seconds:
            BLOSUM62F won)
   pepr     run_pepr with PeprConfig.default_track() (ml full tree,
            PEPR_REPS replicates, refinement) on the pepr_genomes input,
-           files written to a temporary directory; every launch count is
+           files written and a checkpoint store kept in a temporary
+           directory (the seconds in CheckpointStore.save timed by a
+           wrapper the script puts in place); every launch count is
            reset just before and read just after, and every kernel must
            have been launched; at least one refinement round, the six
            output files and the genomes as the tree's leaves are
@@ -142,6 +144,23 @@ Phases, each printing one JSON line with the elapsed seconds:
            stage2 (stage 1's groups to a tree over the 12 genomes; the
            full tree's gradient also against a float64 plain gradient,
            both float32 sides' errors printed)
+  resume   (a) the pepr run's store: files and bytes of the store and
+           of each refinement sub-store, the seconds and number of saves,
+           and the pepr wall beside it; (b) run_pepr again, the same
+           configuration on the finished store: the same Newick, full
+           tree, supports and LL, the files of RESUME_FILES byte for byte,
+           and no kernel launched (every launch count reset just before
+           and read just after); (c) run_stage1(use_hmm=True) and
+           run_stage2 (fast_ml, RESUME_REPS replicates) on the small_hmm
+           input with a store, once whole, then under Countdown deadlines
+           (run out at the n-th poll) until a chain of runs, each
+           resuming the last one's store, finishes (`interrupted_runs`):
+           the stages that stopped it after saved work are listed, the
+           first stop at each of RESUME_STAGES is resumed on a copy of
+           the store with no deadline, and each resumed run and the
+           chain's end must equal the whole run bit for bit (hits,
+           groups, HMM bits, alignments, Newick with lengths, supports,
+           LL); alignment slices of RESUME_CHUNK families in all runs
   profile  torch.profiler's device time by kernel over a shallower
            stage-2 run from the true alignments (run_stage2_aligned,
            fast_ml, PROFILE_REPS replicates), so the stage2 time above
@@ -275,6 +294,19 @@ PEPR_REPS = 100  # the default track's replicates
 PEPR_CUTS: list[str] = []  # depth cut from the default track (none)
 PEPR_FILES = (".nwk", "_final_rooted.nwk", "_final_rooted.json", ".sup",
               ".hs", ".clp", ".report.xml")
+# resume: the files a second run on the pepr run's finished store must
+# write byte for byte (all but the report, which holds wall seconds)
+RESUME_FILES = (".nwk", "_final_rooted.nwk", "_final_rooted.json", ".sup",
+                ".hs", ".clp")
+# resume (c): fast_ml replicates, families per alignment slice (so the
+# small input's ~40 groups take several slices, in every run of the
+# phase alike), the stages an interruption must have named, each
+# resumed once from its first interruption, and a cap on the runs
+RESUME_REPS = 8
+RESUME_CHUNK = 8
+RESUME_STAGES = ("homology SW", "profile HMM scoring", "family alignment",
+                 "full-tree NNI", "support BL-opt")
+RESUME_MAX_RUNS = 400
 
 
 def phase(label: str, **info) -> None:
@@ -285,6 +317,84 @@ def phase(label: str, **info) -> None:
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+class Countdown:
+    """A `Deadline` that runs out at its n-th poll: `expired` and
+    `near` count as polls and report True from the n-th on, `remaining`
+    is 0 from then on and a large number before; `t_end` is set, so a
+    refinement sub-run is handed this countdown too."""
+
+    def __init__(self, n: int):
+        self.n, self.polls, self.t_end = n, 0, float("inf")
+
+    def _poll(self) -> bool:
+        self.polls += 1
+        return self.polls >= self.n
+
+    @property
+    def expired(self) -> bool:
+        return self._poll()
+
+    def near(self, margin: float) -> bool:
+        return self._poll()
+
+    def remaining(self) -> float:
+        return 0.0 if self.polls >= self.n else 1e9
+
+
+def store_digest(root: str) -> str:
+    """sha256 over a store's file names and contents, sub-stores
+    included ("" if there is no store yet)."""
+    import hashlib
+    if not os.path.isdir(root):
+        return ""
+    h = hashlib.sha256()
+    for d, dirs, files in sorted(os.walk(root)):
+        dirs.sort()
+        for f in sorted(files):
+            h.update(os.path.relpath(os.path.join(d, f), root).encode())
+            with open(os.path.join(d, f), "rb") as fh:
+                h.update(fh.read())
+    return h.hexdigest()
+
+
+def store_files(root: str) -> dict:
+    """{store or sub-store: [files, bytes]} of a checkpoint directory."""
+    out: dict = {}
+    for d, _, files in os.walk(root):
+        rel = os.path.relpath(d, root)
+        out[rel] = [len(files), sum(os.path.getsize(os.path.join(d, f))
+                                    for f in files)]
+    return dict(sorted(out.items()))
+
+
+def interrupted_runs(run, root: str, on_stop=None, restart: bool = False,
+                     max_runs: int = RESUME_MAX_RUNS):
+    """Run `run(deadline)` against the store at `root` under
+    Countdown(c) until it finishes; returns (its result, the stages
+    that stopped it, the number of runs).  c starts at 1; a stop that
+    changed nothing in the store (a poll replayed from it, or one right
+    after another stop) counts no stage and moves c one poll on; a stop
+    that saved new work is counted, handed to on_stop(stage), and with
+    `restart` sets c back to 1 (every poll that follows saved work),
+    else keeps it."""
+    from pepr_tpu_torch.pipeline.checkpoint import Incomplete
+    c, stages = 1, []
+    for n in range(1, max_runs + 1):
+        before = store_digest(root)
+        try:
+            return run(Countdown(c)), stages, n
+        except Incomplete as e:
+            if store_digest(root) == before:
+                c += 1
+                continue
+            stages.append(e.stage)
+            if on_stop is not None:
+                on_stop(e.stage)
+            if restart:
+                c = 1
+    fail(f"the run did not finish in {max_runs} interrupted runs")
 
 
 def smi_line(query: str = "name,power.limit") -> str:
@@ -1548,34 +1658,51 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     phase("hmm_kernel", seconds=round(time.time() - t, 3),
           buckets_checked=out["checked"], per_launch=out["per_launch"],
           variants=out["variants"], **entry)
-    return dict(entry=entry, ingroup=ingroup, pool=pool, truth=truth)
+    return dict(entry=entry, ingroup=ingroup, pool=pool, truth=truth,
+                small_in=s_in, small_pool=s_pool)
 
 
-def pepr_phase(h: dict, dev, sm_clock_mhz: float) -> dict:
+def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
     """run_pepr with the reference's default track on the pepr_genomes
-    input, files written to a temporary directory; every kernel's launch
-    count is reset just before and read just after; then path_checks on
-    its stage-2 result.  Returns the launches and path_checks' numbers."""
-    import tempfile
+    input, files written and the checkpoint store kept in `tmp`, the
+    seconds in CheckpointStore.save timed; every kernel's launch count is
+    reset just before and read just after; then path_checks on its
+    stage-2 result.  Returns the launches, path_checks' numbers, the
+    result, the configuration, the save tally and the wall seconds."""
     import numpy as np
     import torch
     from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
+    from pepr_tpu_torch.pipeline.checkpoint import CheckpointStore
     from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
     from pepr_tpu_torch.tree import rf_distance
-    with tempfile.TemporaryDirectory() as out_dir:
-        cfg = PeprConfig.default_track(run_name="smoke", out_dir=out_dir)
-        cfg.stage2.support_reps = PEPR_REPS
-        torch.cuda.synchronize()
-        for mod in (pruning, sw, hmm_kernel):
-            mod.reset_launch_counts()
-        t = time.time()
+    cfg = PeprConfig.default_track(
+        run_name="smoke", out_dir=os.path.join(tmp, "out"),
+        checkpoint_dir=os.path.join(tmp, "ckpt"))
+    cfg.stage2.support_reps = PEPR_REPS
+    save_stats = dict(seconds=0.0, saves=0)
+    save = CheckpointStore.save
+
+    def timed_save(self, key, obj):
+        t0 = time.time()
+        save(self, key, obj)
+        save_stats["seconds"] += time.time() - t0
+        save_stats["saves"] += 1
+
+    torch.cuda.synchronize()
+    for mod in (pruning, sw, hmm_kernel):
+        mod.reset_launch_counts()
+    CheckpointStore.save = timed_save
+    t = time.time()
+    try:
         res = run_pepr(cfg, genomes=h["ingroup"], outgroup_pool=h["pool"],
                        device="cuda")
         torch.cuda.synchronize()
-        wall = time.time() - t
-        launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
-        files = sorted(os.path.basename(p) for p in res.output_paths.values()
-                       if os.path.isfile(p))
+    finally:
+        CheckpointStore.save = save
+    wall = time.time() - t
+    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+    files = sorted(os.path.basename(p) for p in res.output_paths.values()
+                   if os.path.isfile(p))
     want = sorted([g.taxon for g in h["ingroup"]] + res.selected_outgroups)
     leaves = sorted(res.tree.leaf_labels())
     sup = [v for v in res.tree.support if v == v]
@@ -1612,7 +1739,164 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float) -> dict:
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the pepr path")
-    return launches, checks
+    return launches, checks, res, cfg, save_stats, round(wall, 3)
+
+
+def resume_view(store, s1, s2) -> dict:
+    """What an interrupted small run must reproduce bit for bit: the
+    homology hits, the groups, the HMM bits, the alignments, the full
+    and decorated trees (Newick with lengths), the supports and the
+    LL."""
+    from pepr_tpu_torch.tree import to_newick
+    hits = store.load("s1_hits")[0]
+    return dict(
+        hits=[getattr(hits, f) for f in ("query", "target", "raw", "bits",
+                                         "evalue", "identity", "length")],
+        groups=[s.titles for s in s1.hg_sets],
+        outgroups=s1.selected_outgroups,
+        hmm_bits=store.load("hmm_scores")[0],
+        alignments=[a.mat for a in s2.alignments],
+        full_tree=to_newick(s2.full_tree), tree=to_newick(s2.tree),
+        supports=[v for v in s2.tree.support if v == v],
+        log_likelihood=s2.log_likelihood)
+
+
+def view_differences(a: dict, b: dict) -> list[str]:
+    """The keys of two resume_views that are not identical."""
+    import numpy as np
+
+    def same(x, y):
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            return np.array_equal(x, y)
+        if isinstance(x, list) and isinstance(y, list):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return [k for k in a if not same(a[k], b[k])]
+
+
+def small_resume(s_in, s_pool, root: str, dev, reps: int = RESUME_REPS
+                 ) -> dict:
+    """resume (c): run_stage1(use_hmm=True) and run_stage2 (fast_ml,
+    `reps` replicates) on a small input with a store, once whole and
+    once under countdowns (`interrupted_runs`) in a second store; at
+    the first stop of each of RESUME_STAGES a copy of the store is
+    resumed with no deadline.  Every resumed run and the interrupted
+    chain's end must equal the whole run (`view_differences`)."""
+    import shutil
+    from pepr_tpu_torch.models import msa
+    from pepr_tpu_torch.pipeline.checkpoint import CheckpointStore
+    from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
+    from pepr_tpu_torch.pipeline.stage2 import Stage2Config, run_stage2
+    cfg1 = Stage1Config(use_hmm=True, outgroup_count=1,
+                        hmm_min_bits=SMALL_HMM_MIN_BITS)
+    cfg2 = Stage2Config(full_tree_method="fast_ml", support_reps=reps)
+
+    def run(where, deadline):
+        store = CheckpointStore(where)
+        s1 = run_stage1(s_in, s_pool, cfg1, store=store, deadline=deadline,
+                        device=dev)
+        s2 = run_stage2(s1.hg_sets, cfg2, store=store, deadline=deadline,
+                        device=dev)
+        return resume_view(store, s1, s2)
+
+    chunk, msa.ALIGN_CHUNK = msa.ALIGN_CHUNK, RESUME_CHUNK
+    try:
+        t = time.time()
+        want = run(os.path.join(root, "whole"), None)
+        whole_s = time.time() - t
+        chain = os.path.join(root, "chain")
+        resumed: dict = {}
+
+        def on_stop(stage):
+            kind = next((k for k in RESUME_STAGES if stage.startswith(k)),
+                        None)
+            if kind is None or kind in resumed:
+                return
+            where = os.path.join(root, f"resumed{len(resumed)}")
+            shutil.copytree(chain, where)
+            t0 = time.time()
+            diff = view_differences(want, run(where, None))
+            resumed[kind] = dict(stage=stage, differ=diff,
+                                 seconds=round(time.time() - t0, 3))
+
+        t = time.time()
+        got, stages, runs = interrupted_runs(lambda d: run(chain, d), chain,
+                                             on_stop)
+        chain_s = time.time() - t
+    finally:
+        msa.ALIGN_CHUNK = chunk
+    return dict(whole_seconds=round(whole_s, 3),
+                chain_seconds=round(chain_s, 3), runs=runs, stages=stages,
+                chain_differ=view_differences(want, got), resumed=resumed,
+                missing=[k for k in RESUME_STAGES if k not in resumed])
+
+
+def rerun_finished(first, cfg, h, out_dir: str) -> dict:
+    """resume (b): run_pepr again, the same configuration on the first
+    run's finished store, files into `out_dir`; every launch count reset
+    just before and read just after (all must stay 0)."""
+    import torch
+    from dataclasses import replace
+    from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
+    from pepr_tpu_torch.pipeline.pepr import run_pepr
+    from pepr_tpu_torch.tree import to_newick
+    torch.cuda.synchronize()
+    for mod in (pruning, sw, hmm_kernel):
+        mod.reset_launch_counts()
+    t = time.time()
+    res = run_pepr(replace(cfg, out_dir=out_dir), genomes=h["ingroup"],
+                   outgroup_pool=h["pool"], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+
+    def read(path):
+        with open(path, "rb") as fh:
+            return fh.read()
+
+    def supports(r):
+        return [v for v in r.tree.support if v == v]
+
+    return dict(seconds=round(wall, 3), launches=launches,
+                files={sfx: read(first.output_paths[sfx]) ==
+                       read(res.output_paths[sfx]) for sfx in RESUME_FILES},
+                same_newick=res.newick == first.newick,
+                same_full_tree=to_newick(res.stage2.full_tree) ==
+                to_newick(first.stage2.full_tree),
+                same_supports=supports(res) == supports(first),
+                same_log_likelihood=res.stage2.log_likelihood ==
+                first.stage2.log_likelihood,
+                refine_rounds=res.refine_rounds)
+
+
+def resume_phase(first, cfg, h, tmp: str, dev, save_stats: dict,
+                 pepr_seconds: float) -> None:
+    """The resume line: (a) the pepr run's store (files and bytes by
+    store, seconds in CheckpointStore.save), (b) rerun_finished, (c)
+    small_resume on the small_hmm input."""
+    t = time.time()
+    b = rerun_finished(first, cfg, h, os.path.join(tmp, "rerun"))
+    c = small_resume(h["small_in"], h["small_pool"],
+                     os.path.join(tmp, "small"), dev)
+    phase("resume", seconds=round(time.time() - t, 3),
+          a=dict(store=store_files(cfg.checkpoint_dir),
+                 save_seconds=round(save_stats["seconds"], 6),
+                 saves=save_stats["saves"], pepr_seconds=pepr_seconds),
+          b=b, c=c)
+    if any(b["launches"].values()):
+        fail(f"resume: the finished store's re-run launched kernels: "
+             f"{b['launches']}")
+    if not all(b["files"].values()) or not (
+            b["same_newick"] and b["same_full_tree"] and b["same_supports"]
+            and b["same_log_likelihood"]):
+        fail(f"resume: the finished store's re-run differs: {b}")
+    if c["missing"]:
+        fail(f"resume: no interruption named {c['missing']}")
+    bad = {k: v for k, v in c["resumed"].items() if v["differ"]}
+    if bad or c["chain_differ"]:
+        fail(f"resume: resumed runs differ from the whole run: {bad}, "
+             f"chain {c['chain_differ']}")
 
 
 # -- stage 2's other options (the stage2_options phase)
@@ -2288,8 +2572,15 @@ def main(argv=None) -> int:
     o_checks = stage2_options_phase(alignments, truth, args.seed, dev,
                                     sm_clock)
 
-    # -- pepr: the reference's default run, genomes to the output files
-    p_launches, p_checks = pepr_phase(h, dev, sm_clock)
+    # -- pepr: the reference's default run, genomes to the output files,
+    # with a checkpoint store; resume: that store re-run, and a small
+    # run interrupted and resumed
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        p_launches, p_checks, first, p_cfg, save_stats, p_wall = \
+            pepr_phase(h, dev, sm_clock, tmp)
+        resume_phase(first, p_cfg, h, tmp, dev, save_stats, p_wall)
+        del first
 
     # -- profile: device time by kernel over a shallower stage-2 run
     from torch.profiler import ProfilerActivity, profile

@@ -15,8 +15,11 @@ outgroup ranking loop reads `hmmScoreSums[i]` with the wrong loop
 variable (HMMSetEnhancer.java:191), which tends to pick pool genomes in
 file order; the ranking here is by the actual score sums.
 
-Checkpoint resume and deadlines (`store`, `deadline`) are not ported
-(ROADMAP.md, Queue 1 item 14).
+With a checkpoint `store` the group alignments (slices under
+`hmm_align_chunk_{i}`, then `hmm_group_alignments`), the prefilter's
+pairs (`hmm_pairs`) and the scores (progress under `hmm_viterbi`, then
+`hmm_scores`) are saved as in the JAX package, and `deadline` is polled
+after each of them.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from pepr_tpu_torch.ops.hmm import (ProfileHMM, build_profile_hmm,
 from pepr_tpu_torch.ops.kmer_filter import (candidate_pairs, kmer_profiles,
                                             seed_candidates)
 from pepr_tpu_torch.ops.profile_align import release_plans
+from pepr_tpu_torch.pipeline.checkpoint import check_deadline
 
 log = logging.getLogger("pepr_tpu_torch")
 
@@ -102,20 +106,27 @@ def enhance_homolog_groups(hg_sets: list[SequenceSet],
     """The enhanced groups and the selected outgroup genomes, on
     `device` (the card unless "cpu").  `timings` receives the seconds
     of the alignment, the prefilter and the scoring; `counts` the
-    prefilter's pairs and the scorer's counts (`profile_score_pairs`)."""
-    if store is not None or deadline is not None:
-        raise NotImplementedError(
-            "enhance_homolog_groups: checkpoint stores and deadlines are "
-            "not ported yet (ROADMAP.md, Queue 1 item 14)")
+    prefilter's pairs and the scorer's counts (`profile_score_pairs`).
+    `store` and `deadline` (both optional) make the run resumable: see
+    the module docstring."""
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     if not hg_sets:
         return EnhancerResult([], [])
-    # 1. align groups, build profiles + consensus keys
+    # 1. align groups, build profiles + consensus keys (slices saved:
+    # thousands of groups can take several deadline slices)
     t0 = time.time()
-    mats = align_families_chunked([s.seqs for s in hg_sets], device=dev)
+    if store is not None and store.has("hmm_group_alignments"):
+        mats = store.load("hmm_group_alignments")
+    else:
+        mats = align_families_chunked(
+            [s.seqs for s in hg_sets], store=store, deadline=deadline,
+            ckpt_key="hmm_align_chunk", device=dev)
+        if store is not None:
+            store.save("hmm_group_alignments", mats)
     release_plans()  # the DP's cached plans; the scorer needs no more
     log.info("enhancer: %d group alignments ready", len(mats))
+    check_deadline(deadline, "group alignment")
     hmms: list[ProfileHMM] = []
     consensi: list[np.ndarray] = []
     for s, m in zip(hg_sets, mats):
@@ -142,19 +153,34 @@ def enhance_homolog_groups(hg_sets: list[SequenceSet],
     # enhancer blat-level recall; it cannot re-admit a member its
     # prefilter never surfaces)
     t0 = time.time()
-    pairs = prefilter_pairs(seqs, consensi, candidates_per_block,
-                            prefilter_min_sim, dev)
+
+    def prefilter():
+        return prefilter_pairs(seqs, consensi, candidates_per_block,
+                               prefilter_min_sim, dev)
+
+    pairs = store.cached("hmm_pairs", prefilter) if store is not None \
+        else prefilter()
     timings["hmm_prefilter"] = time.time() - t0
     log.info("enhancer: scoring %d (protein, profile) pairs", len(pairs))
+    check_deadline(deadline, "profile prefilter")
 
-    # 4. exact profile scores
+    # 4. exact profile scores, and the scorer's counts with them
     t0 = time.time()
-    scored: dict = {}
-    bits = profile_score_pairs(seqs, hmms, pairs, device=dev, counts=scored)
+
+    def score():
+        scored: dict = {}
+        bits = profile_score_pairs(seqs, hmms, pairs, store=store,
+                                   deadline=deadline, ckpt_key="hmm_viterbi",
+                                   device=dev, counts=scored)
+        return bits, scored
+
+    bits, scored = store.cached("hmm_scores", score) if store is not None \
+        else score()
     timings["hmm_scoring"] = time.time() - t0
     if counts is not None:
         counts["hmm_prefilter_pairs"] = len(pairs)
         counts.update({f"hmm_{k}": v for k, v in scored.items()})
+    check_deadline(deadline, "profile scoring")
 
     # best hit per (genome, hg) and per (protein, hg)
     best_gh: dict[tuple[int, int], tuple[float, int]] = {}

@@ -35,6 +35,7 @@ from pepr_tpu_torch.ops.mcl import mcl_cluster
 from pepr_tpu_torch.ops.smith_waterman import (kernel_matrix,
                                                sw_align_batch_fast)
 from pepr_tpu_torch.ops.sw import integer_sub
+from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 
 log = logging.getLogger("pepr_tpu_torch")
 
@@ -156,7 +157,9 @@ def pack_codes(seqs, max_len: int = 4096, device=None) -> torch.Tensor:
 def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
                  pairs_t: np.ndarray, max_len: int = 4096,
                  sub: np.ndarray | None = None, gap_open: int = 11,
-                 gap_extend: int = 1, device=None) -> dict[str, np.ndarray]:
+                 gap_extend: int = 1, store=None, deadline=None,
+                 ckpt_key: str | None = None,
+                 device=None) -> dict[str, np.ndarray]:
     """Run SW on an arbitrary pair list over a sequence collection
     (a plain list of int8 code arrays, or anything with .seqs).
 
@@ -169,6 +172,14 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
     device until a bucket is done and cross to the host once per
     bucket.  Returns score, matches and length per pair (float32
     arrays).
+
+    With `store` and `ckpt_key` the progress is saved as a mask over
+    the pairs and their outputs (at most once a minute, at the end,
+    and on interruption): a pair's outputs do not depend on the batch
+    it ran in, so a store written on one device resumes on another
+    whatever their batch plans.  `deadline.near(90.0)` is polled before
+    each launch; when it holds, the launches made are synchronized and
+    saved and Incomplete is raised.
     """
     dev = resolve_device(device)
     seqs = seqs_or_universe if isinstance(seqs_or_universe, list) \
@@ -178,6 +189,21 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
            for k in ("score", "matches", "length")}
     if n_pairs == 0:
         return out
+    done = np.zeros(n_pairs, dtype=bool)
+    use_ckpt = store is not None and ckpt_key is not None
+    if use_ckpt and store.has(ckpt_key):
+        st = store.load(ckpt_key)
+        done = st["done"]
+        for k in out:
+            out[k][:] = st["out"][k]
+        log.info("sw resume: %d of %d pairs already done", int(done.sum()),
+                 n_pairs)
+    last_save = time.time()
+
+    def save():
+        if use_ckpt:
+            store.save(ckpt_key, {"done": done, "out": out})
+
     sub_dev = integer_sub(kernel_matrix() if sub is None else sub, dev)
     codes_all = pack_codes(seqs, max_len, dev)
     lens = np.array([len(s) for s in seqs], dtype=np.int64)
@@ -186,12 +212,20 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
     ti_all = torch.as_tensor(eff_t, device=dev)
     lens_all = torch.as_tensor(lens, device=dev)
     for (blq, blt), idxs in buckets.items():
+        idxs = idxs[~done[idxs]]
+        if len(idxs) == 0:
+            continue
         t0 = time.time()
         step = batch_pairs(blq, blt, dev)
         sel_all = by_real_cells(lens_all, qi_all, ti_all,
                                 torch.as_tensor(idxs, device=dev))
         parts = []
+        n_run = 0
+        stop = False
         for s0 in range(0, len(idxs), step):
+            if deadline is not None and deadline.near(90.0):
+                stop = True
+                break
             sel = sel_all[s0:s0 + step]
             qb = codes_all[qi_all[sel], :blq]
             tb = codes_all[ti_all[sel], :blt]
@@ -200,12 +234,22 @@ def _bucketed_sw(seqs_or_universe, pairs_q: np.ndarray,
             parts.append(torch.stack([res["score"],
                                       res["matches"].to(torch.float32),
                                       res["length"].to(torch.float32)]))
-        got = torch.cat(parts, dim=1).cpu().numpy()
-        order = sel_all.cpu().numpy()
-        for row, k in enumerate(("score", "matches", "length")):
-            out[k][order] = got[row]
-        log.info("sw bucket (%d,%d): %d pairs in %.2fs", blq, blt,
-                 len(idxs), time.time() - t0)
+            n_run += len(sel)
+        if parts:
+            got = torch.cat(parts, dim=1).cpu().numpy()
+            order = sel_all[:n_run].cpu().numpy()
+            for row, k in enumerate(("score", "matches", "length")):
+                out[k][order] = got[row]
+            done[order] = True
+            log.info("sw bucket (%d,%d): %d pairs in %.2fs", blq, blt,
+                     n_run, time.time() - t0)
+        if stop:
+            save()
+            raise Incomplete("homology SW")
+        if use_ckpt and time.time() - last_save > 60.0:
+            save()
+            last_save = time.time()
+    save()
     return out
 
 
@@ -267,6 +311,8 @@ def search_all_vs_all(genomes: list[SequenceSet], *,
                       seed_k: int | None = None,
                       seed_min_shared: int = 1,
                       seed_max_df: int = 200,
+                      store=None,
+                      deadline=None,
                       alphabet: str = "aa",
                       device=None,
                       timings: dict | None = None,
@@ -293,7 +339,9 @@ def search_all_vs_all(genomes: list[SequenceSet], *,
     runs the cosine top-k and SW; `timings`, if given, receives the
     seconds of each sub-phase (profiles, cosine_candidates,
     seed_candidates, sw, hit_ranking) and `counts` the number of SW
-    pairs (sw_pairs)."""
+    pairs (sw_pairs).  With a `store` the pair list is saved under
+    `s1_sw_pairs` and SW's progress under `s1_sw_out`; `deadline` is
+    polled before each SW launch (`_bucketed_sw`)."""
     dev = resolve_device(device)
     timings = {} if timings is None else timings
     counts = {} if counts is None else counts
@@ -303,18 +351,25 @@ def search_all_vs_all(genomes: list[SequenceSet], *,
         from pepr_tpu_torch.data.nt_scores import (NT_GAP_EXTEND, NT_GAP_OPEN,
                                                    nt_kernel_matrix,
                                                    nt_raw_to_bit_score)
-    pairs_q, pairs_t = candidate_union(
-        universe, candidates_per_genome=candidates_per_genome,
-        prefilter_min_sim=prefilter_min_sim, profile_dim=profile_dim,
-        seed_top_per_genome=seed_top_per_genome, seed_k=seed_k,
-        seed_min_shared=seed_min_shared, seed_max_df=seed_max_df,
-        alphabet=alphabet, device=dev, timings=timings)
+
+    def cands():
+        return candidate_union(
+            universe, candidates_per_genome=candidates_per_genome,
+            prefilter_min_sim=prefilter_min_sim, profile_dim=profile_dim,
+            seed_top_per_genome=seed_top_per_genome, seed_k=seed_k,
+            seed_min_shared=seed_min_shared, seed_max_df=seed_max_df,
+            alphabet=alphabet, device=dev, timings=timings)
+
+    pairs_q, pairs_t = store.cached("s1_sw_pairs", cands) \
+        if store is not None else cands()
     counts["sw_pairs"] = len(pairs_q)
     t0 = time.time()
     res = _bucketed_sw(universe, pairs_q, pairs_t,
                        sub=nt_kernel_matrix() if is_nt else None,
                        gap_open=NT_GAP_OPEN if is_nt else 11,
-                       gap_extend=NT_GAP_EXTEND if is_nt else 1, device=dev)
+                       gap_extend=NT_GAP_EXTEND if is_nt else 1,
+                       store=store, deadline=deadline, ckpt_key="s1_sw_out",
+                       device=dev)
     timings["sw"] = time.time() - t0
     log.info("homology: SW on %d pairs in %.1fs", len(pairs_q),
              timings["sw"])

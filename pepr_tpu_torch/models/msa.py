@@ -30,10 +30,12 @@ from pepr_tpu_torch.io.fasta import SequenceSet
 from pepr_tpu_torch.ops.kmer_filter import kmer_profiles
 from pepr_tpu_torch.ops.profile_align import (blosum_core, nw_profile_dp,
                                               traceback)
+from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 
 log = logging.getLogger("pepr_tpu_torch")
 
 MIN_BATCH = 8  # smallest padded batch of a DP call
+ALIGN_CHUNK = 512  # families per slice of `align_families_chunked`
 MIN_BUCKET = 64  # smallest padded profile length of a DP call
 
 # The progressive MSA's tally, reset with `reset_align_counts`: DP calls,
@@ -262,18 +264,36 @@ def align_families(families: list[list[np.ndarray]], *,
 
 
 def align_families_chunked(families: list[list[np.ndarray]], *,
-                           chunk: int = 512, **kw) -> list[np.ndarray]:
-    """`align_families` `chunk` families at a time (a chunk of hundreds
-    of families still fills the device with full merge waves).  The
-    reference also persists each slice to its checkpoint store and polls
-    a deadline between slices; neither is ported."""
+                           store=None, deadline=None,
+                           ckpt_key: str = "align_chunk",
+                           chunk: int | None = None,
+                           **kw) -> list[np.ndarray]:
+    """`align_families` in resumable slices of `chunk` families
+    (ALIGN_CHUNK by default: a slice of hundreds of families still fills
+    the device with full merge waves).  With a `store` each slice is
+    saved under `{ckpt_key}_{i}`, so an interrupted run resumes at the
+    first unfinished slice; the `deadline` is polled between slices,
+    only after fresh work, so replaying cached slices always makes
+    progress."""
+    chunk = ALIGN_CHUNK if chunk is None else chunk
     n = len(families)
     out: list[np.ndarray] = []
-    for s0 in range(0, n, chunk):
+    for i, s0 in enumerate(range(0, n, chunk)):
+        part = families[s0:s0 + chunk]
         t0 = time.time()
-        out.extend(align_families(families[s0:s0 + chunk], **kw))
+        if store is not None:
+            key = f"{ckpt_key}_{i}"
+            cached = store.has(key)
+            mats = store.cached(key, lambda: align_families(part, **kw))
+        else:
+            cached, mats = False, align_families(part, **kw)
+        out.extend(mats)
+        if cached:
+            continue
         log.info("align: %d/%d families (%.1fs slice)",
                  min(s0 + chunk, n), n, time.time() - t0)
+        if deadline is not None and deadline.expired and s0 + chunk < n:
+            raise Incomplete("family alignment")
     return out
 
 

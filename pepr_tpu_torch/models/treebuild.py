@@ -11,8 +11,8 @@ Beside ML: the plain NJ tree (`nj_tree`), the Fitch parsimony search
 (`parsimony_tree`, with ML branch lengths for `parsimony_bl`), matrix
 evaluation (`evaluate_substitution_models`), and `ml_tree`'s constraint
 tree and candidate cap.  The move generators are numpy and copied from
-the JAX package.  Not ported yet: checkpoint/deadline resume (`store`,
-`deadline`; ROADMAP Queue 1 item 14).
+the JAX package.  `ml_tree` saves its search state in a checkpoint
+store and stops at a deadline as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -30,6 +30,7 @@ from pepr_tpu_torch.ops.likelihood import (TreeArrays, WagModel,
                                            loglik_weighted, model_tensors,
                                            tree_to_arrays)
 from pepr_tpu_torch.ops.parsimony import fitch_score_topologies
+from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 from pepr_tpu_torch.tree.basic import Tree
 from pepr_tpu_torch.tree.bipartition import (bipartitions, canonical,
                                              compatible, node_leafsets,
@@ -409,6 +410,7 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
             bl_steps: int = 150, bl_refine_steps: int = 60,
             spr_rounds: int = 2, constraint: Tree | None = None,
             max_candidates: int | None = None,
+            store=None, deadline=None, ckpt_key: str | None = None,
             device=None) -> tuple[Tree, float]:
     """Full ML pipeline: NJ start -> BL opt -> NNI hill climbing with
     batched SPR escapes.  Each NNI round scores the full neighborhood
@@ -420,6 +422,13 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
     With `constraint` (FastTreeRunner.java:243-273's constraint-file
     role), rearrangements introducing a bipartition incompatible with
     the constraint tree are rejected.
+
+    With `store` + `ckpt_key` the search state (children, branch
+    lengths, LL, rounds done, SPR sweeps left) is saved after the first
+    branch-length fit and after every refit, the points where the
+    search restarts Adam from host state, so a resumed search is the
+    uninterrupted one; `deadline.near(90.0)` is polled before each NNI
+    round and SPR sweep and raises Incomplete.
 
     Returns (tree with optimized branch lengths, final log-likelihood).
     """
@@ -438,11 +447,28 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
     w = np.ones(L, np.float32) if site_weights is None else \
         np.asarray(site_weights, np.float32)
 
-    blen, ll = optimize_branch_lengths(codes, arr, model, site_weights=w,
-                                       steps=bl_steps, device=dev)
-    arr.blen[:] = blen
-    children = arr.children.copy()
-    rounds_done, spr_left = 0, spr_rounds
+    use_ckpt = store is not None and ckpt_key is not None
+    state = store.load(ckpt_key) if use_ckpt and store.has(ckpt_key) \
+        else None
+    if state is None:
+        blen, ll = optimize_branch_lengths(codes, arr, model,
+                                           site_weights=w, steps=bl_steps,
+                                           device=dev)
+        arr.blen[:] = blen
+        children = arr.children.copy()
+        rounds_done, spr_left = 0, spr_rounds
+    else:
+        children, blen, ll, rounds_done, spr_left = state
+        arr = TreeArrays(children, blen, arr.node_of_tree_node, arr.taxa)
+        log.info("ml_tree: resumed at round %d (LL %.3f)", rounds_done, ll)
+
+    def save():
+        if use_ckpt:
+            store.save(ckpt_key, (children, arr.blen.copy(), ll,
+                                  rounds_done, spr_left))
+
+    if state is None:
+        save()
 
     margs = model_tensors(model, dev)
     codes_d = torch.as_tensor(codes, device=dev)
@@ -472,8 +498,11 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
                                             device=dev)
         arr.blen[:] = b
         ll = new_ll
+        save()  # every refit is a new state
 
     while rounds_done < nni_rounds:
+        if deadline is not None and deadline.near(90.0):
+            raise Incomplete(f"full-tree NNI round {rounds_done}")
         rounds_done += 1
         moves = _nni_moves(children, n_leaves)
         if max_candidates is not None and len(moves) > max_candidates:
@@ -501,6 +530,12 @@ def ml_tree(mat: np.ndarray, taxa: list[str], model: WagModel | None = None,
             # NNI converged; try a batched SPR escape
             if spr_left <= 0:
                 break
+            if deadline is not None and deadline.near(90.0):
+                # the store holds the state this round started from: a
+                # resumed search scores its NNI neighbourhood again (no
+                # move, as here) and then sweeps
+                raise Incomplete(
+                    f"full-tree SPR sweep {spr_rounds - spr_left}")
             spr_left -= 1
             spr = _spr_candidates(children, n_leaves)
             if constraint_bips is not None:

@@ -43,15 +43,16 @@ What the port keeps and cuts of the reference's batching
   remote TPU worker's in-flight gathered slabs, is replaced by plain
   stream ordering and one host sync per bucket: the kernel reads the
   packs directly and holds no per-pair slab.
-- `store`, `deadline` and `ckpt_key` (chunk checkpoints) are not ported
-  (ROADMAP.md, Queue 1 item 14).
+- The reference's chunk checkpoints keyed by launch shape
+  (lpad, mpad, s0) are a mask over the pairs here, so the card's plan
+  and the CPU's buckets resume one store.
 """
 
 from __future__ import annotations
 
 import logging
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -59,6 +60,7 @@ import torch
 from pepr_tpu_torch.alphabet import GAP, N_AA, PAD
 from pepr_tpu_torch.data.wag import WAG_FREQS
 from pepr_tpu_torch.device import resolve_device
+from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 
 log = logging.getLogger("pepr_tpu_torch")
 
@@ -418,6 +420,13 @@ class Bucket:
         return [slice(s0, s0 + self.eff)
                 for s0 in range(0, len(self.pairs), self.eff)]
 
+    def pending(self, done: np.ndarray) -> "Bucket":
+        """The bucket's pairs not yet `done` (a mask over the pair list),
+        in order, in launches of the same size."""
+        keep = ~done[self.pairs]
+        return replace(self, pairs=self.pairs[keep],
+                       seq_idx=self.seq_idx[keep], hmm_idx=self.hmm_idx[keep])
+
     def real_cells(self, seq_lens: np.ndarray, m_lens: np.ndarray,
                    sel: slice = slice(None)) -> int:
         """DP cells the pairs `sel` hold inside L x M (`m_lens`: the
@@ -513,12 +522,15 @@ def profile_score_pairs(seqs: list[np.ndarray], hmms: list[ProfileHMM],
     empirical null correction, which puts these bits on the HMMER
     scale).  `device`: the card unless "cpu" (`resolve_device`).
     `counts`, if given, receives the pairs by bucket and the padded and
-    real DP cells."""
-    if store is not None or deadline is not None or ckpt_key is not None:
-        raise NotImplementedError(
-            "profile_score_pairs: chunk checkpoints and deadlines (store, "
-            "deadline, ckpt_key) are not ported yet (ROADMAP.md, Queue 1 "
-            "item 14)")
+    real DP cells.
+
+    With `store` and `ckpt_key` the progress is saved as a mask over
+    the pairs and their raw scores (at most once a minute, at the end,
+    and on interruption): a pair's score does not depend on the launch
+    it ran in, so the card's plan and the CPU's buckets resume one
+    store.  `deadline.near(90.0)` is polled before each launch; when it
+    holds, the launches made are synchronized and saved and Incomplete
+    is raised."""
     if algorithm not in ("forward", "viterbi"):
         raise ValueError(f"unknown algorithm {algorithm!r}")
     forward = algorithm == "forward"
@@ -526,6 +538,19 @@ def profile_score_pairs(seqs: list[np.ndarray], hmms: list[ProfileHMM],
     if not pairs:
         return np.zeros(0, np.float32)
     out = np.zeros(len(pairs), np.float32)
+    done = np.zeros(len(pairs), dtype=bool)
+    use_ckpt = store is not None and ckpt_key is not None
+    if use_ckpt and store.has(ckpt_key):
+        st = store.load(ckpt_key)
+        done = st["done"]
+        out[:] = st["out"]
+        log.info("profile scoring resume: %d of %d pairs already done",
+                 int(done.sum()), len(pairs))
+    last_save = time.time()
+
+    def save():
+        if use_ckpt:
+            store.save(ckpt_key, {"done": done, "out": out})
 
     codes_np, lens_np = pack_sequences(seqs)
     codes_all = torch.as_tensor(codes_np, device=dev)
@@ -547,6 +572,11 @@ def profile_score_pairs(seqs: list[np.ndarray], hmms: list[ProfileHMM],
                            codes_np.shape[1]) if card else ref
 
     for mpad, members, buckets in plan:
+        # the pairs still to score, each bucket's in its order
+        buckets = [b.pending(done) for b in buckets]
+        buckets = [b for b in buckets if len(b.pairs)]
+        if not buckets:
+            continue
         pack, _ = device_pack([hmms[i] for i in members], mpad, dev)
         walk = None
         if card:
@@ -556,14 +586,32 @@ def profile_score_pairs(seqs: list[np.ndarray], hmms: list[ProfileHMM],
             t0 = time.time()
             si_all = torch.as_tensor(b.seq_idx, device=dev)
             hi_all = torch.as_tensor(b.hmm_idx, device=dev)
-            res = [score_chunk(codes_all, lens_all, *pack, si_all[sel],
-                               hi_all[sel], b.lpad, forward, walk=walk)
-                   for sel in b.launches()]
-            # one host sync per bucket
-            out[b.pairs] = torch.cat(res).cpu().numpy()
-            log.info("profile scoring bucket (%d,%d): %d pairs in %.2fs",
-                     b.lpad, mpad, len(b.pairs), time.time() - t0)
+            res = []
+            stop = False
+            for sel in b.launches():
+                if deadline is not None and deadline.near(90.0):
+                    stop = True
+                    break
+                res.append(score_chunk(codes_all, lens_all, *pack,
+                                       si_all[sel], hi_all[sel], b.lpad,
+                                       forward, walk=walk))
+            if res:
+                # one host sync per bucket
+                got = torch.cat(res).cpu().numpy()
+                out[b.pairs[:len(got)]] = got
+                done[b.pairs[:len(got)]] = True
+                log.info("profile scoring bucket (%d,%d): %d pairs in %.2fs",
+                         b.lpad, mpad, len(got), time.time() - t0)
+            if stop:
+                save()
+                raise Incomplete("profile HMM scoring")
+            if use_ckpt and time.time() - last_save > 60.0:
+                save()
+                last_save = time.time()
         del pack, walk
+    save()
+    # the null correction once, on the return (the store holds raw
+    # kernel scores)
     if null_per_col:
         m_arr = hmm_lens[np.asarray(pairs, np.int64).reshape(-1, 2)[:, 1]]
         return out - null_per_col * m_arr.astype(np.float32)

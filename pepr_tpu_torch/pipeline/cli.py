@@ -12,15 +12,18 @@ log, the log4j role of lib/log4j.properties:1-10),
 -track default|fast|blat_fast|
 blast_fast|blat_raxml|blast_raxml (the reference's named tracks all
 expand to the same default property list, PhyloPipeline.java:
-1102-1147; *_fast keeps the FastTree full-tree method).  The port adds
--device cpu|cuda (default: the card).  -checkpoint and -time_budget
-parse as in the JAX package, but run_pepr refuses them (not ported:
-ROADMAP.md, Queue 1 item 14).
+1102-1147; *_fast keeps the FastTree full-tree method), -checkpoint
+<dir> (save every stage's results there and resume from them) and
+-time_budget <seconds> (a soft budget: when it runs out the run stops
+with `Incomplete`, naming the stage, and the same command run again
+resumes from the checkpoint directory).  The port adds -device
+cpu|cuda (default: the card); a store written on one resumes on the
+other.
 
 Usage:
   python -m pepr_tpu_torch.pipeline.cli -run_name X \
       -genome_file in/*.faa -outgroup og/*.faa -outgroup_count 2 \
-      [-device cpu]
+      [-device cpu] [-checkpoint DIR [-time_budget S]]
 """
 
 from __future__ import annotations

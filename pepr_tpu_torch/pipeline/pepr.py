@@ -9,18 +9,28 @@ sub-runs on low-support subtrees, and the output files
 (nwk/json/sup/hs/clp/report.xml).  Everything runs on `device` (the
 card unless "cpu").
 
-Not ported: checkpoint resume and the soft time budget
-(`checkpoint_dir`, `time_budget`: ROADMAP.md, Queue 1 item 14); setting
-either raises.
+`checkpoint_dir` makes a run resumable: every stage saves its results
+in a store there (`pipeline/checkpoint.py`), each refinement sub-run in
+its own store `sub{round}` under it, and a second run of the same
+configuration picks up where the first stopped.  `time_budget` is a
+soft budget in seconds: the stages poll it and raise `Incomplete`,
+naming the stage, with the store left resumable; a sub-run gets what
+remains of it.  The store's fingerprint covers what the JAX package's
+covers plus the alphabet, which that package leaves out (its
+`Stage1Config`/`Stage2Config` reprs omit it), so a nucleotide run never
+resumes a protein store.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field, replace
 
 from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.io.fasta import SequenceSet, read_fasta
+from pepr_tpu_torch.pipeline.checkpoint import (CheckpointStore, Deadline,
+                                                config_fingerprint)
 from pepr_tpu_torch.pipeline.refine import refine_tree
 from pepr_tpu_torch.pipeline.reports import RunTracker, write_outputs
 from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
@@ -42,8 +52,8 @@ class PeprConfig:
     refine_cutoff: float = 100.0
     max_refine_rounds: int = 10
     subtree: bool = False  # set for refinement sub-runs
-    checkpoint_dir: str | None = None  # not ported (Queue 1 item 14)
-    time_budget: float | None = None  # not ported (Queue 1 item 14)
+    checkpoint_dir: str | None = None  # enables resume
+    time_budget: float | None = None  # soft seconds budget (resumable)
     min_taxa_multiplier: float = 0.8
     min_taxa: int | None = None
     max_taxa: int | None = None
@@ -104,14 +114,24 @@ def run_pepr(cfg: PeprConfig,
              genomes: list[SequenceSet] | None = None,
              outgroup_pool: list[SequenceSet] | None = None,
              write_files: bool = True, device=None) -> PeprResult:
-    if cfg.checkpoint_dir is not None or cfg.time_budget is not None:
-        raise NotImplementedError(
-            "run_pepr: checkpoint_dir and time_budget (resume and the soft "
-            "time budget) are not ported yet (ROADMAP.md, Queue 1 item 14)")
     dev = resolve_device(device)
     timings: dict = {}
     tracker = RunTracker(cfg.run_name)
     rec = tracker.new_round("round_1" if not cfg.subtree else "subtree")
+
+    store = None
+    if cfg.checkpoint_dir is not None:
+        # everything that affects saved results, not the per-slice knobs
+        # (time_budget, out_dir, checkpoint_dir) nor the device
+        fp = config_fingerprint(
+            cfg.stage1, cfg.stage2, cfg.outgroup_count,
+            cfg.min_taxa_multiplier, cfg.min_taxa, cfg.max_taxa,
+            cfg.target_sets,
+            [os.path.basename(p) for p in cfg.genome_files],
+            [os.path.basename(p) for p in cfg.outgroup_files],
+            cfg.alphabet)
+        store = CheckpointStore(cfg.checkpoint_dir, fingerprint=fp)
+    deadline = Deadline(cfg.time_budget)
 
     if genomes is None:
         genomes = _load_genomes(cfg.genome_files, cfg.alphabet)
@@ -120,11 +140,18 @@ def run_pepr(cfg: PeprConfig,
 
     t0 = time.time()
     s1cfg = replace(cfg.stage1, outgroup_count=cfg.outgroup_count)
-    s1 = run_stage1(genomes, outgroup_pool, s1cfg, device=dev)
+
+    def stage1():
+        s1 = run_stage1(genomes, outgroup_pool, s1cfg, store=store,
+                        deadline=deadline, device=dev)
+        return s1.hg_sets, s1.selected_outgroups, s1.timings, s1.counts
+
+    hg_sets, selected_outgroups, s1_timings, s1_counts = \
+        store.cached("stage1", stage1) if store is not None else stage1()
     _sync(dev)
     timings["stage1"] = time.time() - t0
-    rec["wall_seconds"].update(s1.timings)
-    rec["outgroups"] = s1.selected_outgroups
+    rec["wall_seconds"].update(s1_timings)
+    rec["outgroups"] = selected_outgroups
 
     t0 = time.time()
     max_taxa = cfg.max_taxa if cfg.max_taxa is not None else len(genomes)
@@ -133,9 +160,10 @@ def run_pepr(cfg: PeprConfig,
     min_taxa = max(min_taxa, 3)
     s2cfg = replace(
         cfg.stage2, min_taxa=min_taxa,
-        max_taxa=max_taxa + len(s1.selected_outgroups),
+        max_taxa=max_taxa + len(selected_outgroups),
         target_sets=cfg.target_sets)
-    s2 = run_stage2(s1.hg_sets, s2cfg, device=dev)
+    s2 = run_stage2(hg_sets, s2cfg, store=store, deadline=deadline,
+                    device=dev)
     _sync(dev)
     timings["stage2"] = time.time() - t0
     rec["wall_seconds"].update(s2.timings)
@@ -148,8 +176,8 @@ def run_pepr(cfg: PeprConfig,
     rec["substitution_model"] = s2.model_name
     rec["tree"] = to_newick(s2.tree)
 
-    rooted = root_by_outgroup(s2.tree, s1.selected_outgroups) \
-        if s1.selected_outgroups else s2.tree
+    rooted = root_by_outgroup(s2.tree, selected_outgroups) \
+        if selected_outgroups else s2.tree
 
     rounds = 0
     if cfg.refine and not cfg.subtree:
@@ -167,6 +195,12 @@ def run_pepr(cfg: PeprConfig,
             sub_out = [taxon_to_genome[compress_name(t)]
                        for t in outgroup_taxa
                        if compress_name(t) in taxon_to_genome]
+            sub_ckpt = None
+            if store is not None:
+                sub_ckpt = os.path.join(store.root, f"sub{round_idx}")
+            budget = None
+            if deadline.t_end is not None:
+                budget = deadline.remaining()
             # the unique-species filter is disabled for small subtree
             # runs (PhylogeneticTreeRefiner.java:89,145-149: fewer than
             # 5 unique species; a refinement region is often a cluster
@@ -180,7 +214,8 @@ def run_pepr(cfg: PeprConfig,
                 cfg, run_name=f"{cfg.run_name}_refine_sub{round_idx}",
                 refine=False, subtree=True,
                 outgroup_count=min(len(sub_out), 2),
-                min_taxa=None, max_taxa=None, stage1=sub_s1)
+                min_taxa=None, max_taxa=None, stage1=sub_s1,
+                checkpoint_dir=sub_ckpt, time_budget=budget)
             res = run_pepr(sub_cfg, genomes=sub_in, outgroup_pool=sub_out,
                            write_files=False, device=dev)
             srec = tracker.new_round(f"refine_{round_idx}")
@@ -191,14 +226,14 @@ def run_pepr(cfg: PeprConfig,
             srec["outgroups"] = res.selected_outgroups
             return res.tree
 
-        rooted = refine_tree(rooted, s1.selected_outgroups, run_subtree,
+        rooted = refine_tree(rooted, selected_outgroups, run_subtree,
                              cutoff=cfg.refine_cutoff,
                              max_rounds=cfg.max_refine_rounds)
         _sync(dev)
         timings["refine"] = time.time() - t0
 
-    result = PeprResult(rooted, s2, s1.selected_outgroups, timings=timings,
-                        refine_rounds=rounds, stage1_counts=s1.counts)
+    result = PeprResult(rooted, s2, selected_outgroups, timings=timings,
+                        refine_rounds=rounds, stage1_counts=s1_counts)
     if write_files:
         t0 = time.time()
         clp = ["-run_name", cfg.run_name,

@@ -30,6 +30,7 @@ from pepr_tpu_torch.models.homology import (ProteinUniverse, _bucketed_sw,
                                             search_all_vs_all)
 from pepr_tpu_torch.ops.kmer_filter import (DEFAULT_K, candidate_pairs,
                                             kmer_profiles)
+from pepr_tpu_torch.pipeline.checkpoint import check_deadline
 
 log = logging.getLogger("pepr_tpu_torch")
 
@@ -173,11 +174,14 @@ def score_outgroups(hg_sets: list[SequenceSet], pool: list[SequenceSet],
 
 
 def run_stage1(ingroup: list[SequenceSet], outgroup_pool: list[SequenceSet],
-               cfg: Stage1Config | None = None, device=None) -> Stage1Result:
+               cfg: Stage1Config | None = None, store=None, deadline=None,
+               device=None) -> Stage1Result:
     """Homolog groups of the ingroup and the selected outgroups, on
-    `device` (`resolve_device`: the card unless "cpu").  Checkpoint
-    resume and deadlines (`store`, `deadline` in the JAX package) are
-    not ported yet."""
+    `device` (`resolve_device`: the card unless "cpu").  With a
+    checkpoint `store` the hits (`s1_hits`, the search's own progress
+    under `s1_sw_pairs` and `s1_sw_out`), the clusters (`s1_clusters`)
+    and the enhancer's parts are saved; `deadline` is polled after the
+    homology search, MCL and the HMM enhancement."""
     cfg = cfg or Stage1Config()
     dev = resolve_device(device)
     timings: dict = {}
@@ -189,32 +193,48 @@ def run_stage1(ingroup: list[SequenceSet], outgroup_pool: list[SequenceSet],
 
     t0 = time.time()
     universe = ProteinUniverse.build(genomes)
-    if cfg.homology_file:
-        # precomputed results (-homology_search_method <file>,
-        # PhyloPipeline.java:340-356)
-        from pepr_tpu_torch.io.hits import read_blast8
-        hits = read_blast8(cfg.homology_file, universe)
-    else:
+
+    def search():
+        if cfg.homology_file:
+            # precomputed results (-homology_search_method <file>,
+            # PhyloPipeline.java:340-356)
+            from pepr_tpu_torch.io.hits import read_blast8
+            return read_blast8(cfg.homology_file, universe), {}
+        found: dict = {}
         _, hits = search_all_vs_all(
             genomes, hits_per_query=cfg.hits_per_query,
             evalue_cutoff=cfg.evalue_cutoff,
             min_identity=cfg.min_identity, min_score=cfg.min_score,
-            alphabet=cfg.alphabet, device=dev, timings=timings,
-            counts=counts)
+            store=store, deadline=deadline, alphabet=cfg.alphabet,
+            device=dev, timings=timings, counts=found)
+        return hits, found
+
+    # the hits with the search's counts (sw_pairs)
+    hits, found = store.cached("s1_hits", search) if store is not None \
+        else search()
+    counts.update(found)
     timings["homology_search"] = time.time() - t0
     counts["hits"] = len(hits.query)
     log.info("stage1: homology search done in %.1fs (%d hits)",
              timings["homology_search"], len(hits.query))
+    check_deadline(deadline, "homology search")
 
     t0 = time.time()
-    clusters = cluster_homolog_groups(
-        universe, hits, bidirectional=cfg.bidirectional,
-        inflation=cfg.inflation, min_size=cfg.min_cluster_size, device=dev)
-    hg_sets = groups_to_sequence_sets(universe, clusters)
+
+    def clusters():
+        return cluster_homolog_groups(
+            universe, hits, bidirectional=cfg.bidirectional,
+            inflation=cfg.inflation, min_size=cfg.min_cluster_size,
+            device=dev)
+
+    hg_sets = groups_to_sequence_sets(
+        universe, store.cached("s1_clusters", clusters)
+        if store is not None else clusters())
     timings["mcl"] = time.time() - t0
     counts["groups"] = len(hg_sets)
     log.info("stage1: MCL done in %.1fs (%d groups)", timings["mcl"],
              len(hg_sets))
+    check_deadline(deadline, "mcl")
 
     if cfg.use_hmm:
         from pepr_tpu_torch.models.hmm_enhancer import enhance_homolog_groups
@@ -225,11 +245,12 @@ def run_stage1(ingroup: list[SequenceSet], outgroup_pool: list[SequenceSet],
         enh = enhance_homolog_groups(
             hg_sets, ingroup, outgroup_pool,
             outgroup_count=cfg.outgroup_count if outgroup_pool else 0,
-            min_bits=cfg.hmm_min_bits, device=dev, timings=timings,
-            counts=counts)
+            min_bits=cfg.hmm_min_bits, store=store, deadline=deadline,
+            device=dev, timings=timings, counts=counts)
         timings["hmm_enhancement"] = time.time() - t0
         log.info("stage1: HMM enhancement done in %.1fs (outgroups: %s)",
                  timings["hmm_enhancement"], enh.selected_outgroups)
+        check_deadline(deadline, "hmm enhancement")
         return Stage1Result(universe, enh.enhanced_sets,
                             enh.selected_outgroups, timings, counts)
 

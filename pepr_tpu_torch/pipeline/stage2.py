@@ -13,9 +13,12 @@ decorate supports.  `run_stage2` starts from homolog groups;
 `run_stage2_aligned` from aligned families.  Both end in one tail,
 `_tree_stage`.
 
-Every `Stage2Config` value of the JAX package runs here.  Not ported
-yet: checkpoint/deadline resume (ROADMAP Queue 1 item 14), which
-`run_stage2` takes no arguments for.
+Every `Stage2Config` value of the JAX package runs here.  With a
+checkpoint `store` the alignments (slices under `s2_align_chunk_{i}`,
+then `alignments`), the Gamma shape (`gamma_alpha`), matrix evaluation
+(`matrix_eval`), the full tree (`full_tree`, its search state under
+`full_tree_state`) and the support trees are saved under the JAX
+package's keys, and `deadline` is polled after each of them.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from pepr_tpu_torch.models.treebuild import (empirical_aa_freqs,
 from pepr_tpu_torch.ops.likelihood import WagModel
 from pepr_tpu_torch.ops.profile_align import release_plans
 from pepr_tpu_torch.ops.trim import gblocks_mask
+from pepr_tpu_torch.pipeline.checkpoint import check_deadline
 from pepr_tpu_torch.tree import parse_newick, to_newick
 from pepr_tpu_torch.tree.basic import Tree
 
@@ -137,9 +141,10 @@ def filter_sets(sets: list[SequenceSet],
 
 
 def run_stage2(sets: list[SequenceSet], cfg: Stage2Config | None = None,
-               device=None) -> Stage2Result:
+               store=None, deadline=None, device=None) -> Stage2Result:
     """Stage 2 from homolog groups: filter, align, refine, trim, then
-    the tree stage, on the card unless `device="cpu"`."""
+    the tree stage, on the card unless `device="cpu"`; `store` and
+    `deadline` as in the module docstring."""
     cfg = cfg or Stage2Config()
     check_config(cfg)
     dev = resolve_device(device)
@@ -149,44 +154,56 @@ def run_stage2(sets: list[SequenceSet], cfg: Stage2Config | None = None,
     kept = filter_sets(sets, cfg)
     if not kept:
         raise ValueError("no homolog groups survive the taxa filters")
-    nt_kw = {}
-    if cfg.alphabet == "nt":
-        nt_kw = dict(core=nt_core(), gap_open=float(NT_GAP_OPEN),
-                     gap_extend=float(NT_GAP_EXTEND))
-    mats = align_families_chunked([s.seqs for s in kept], device=dev,
-                                  **nt_kw)
-    if cfg.msa_refine_iters > 0:
-        mats, n_imp = refine_families(mats, iters=cfg.msa_refine_iters,
-                                      device=dev, **nt_kw)
-        log.info("stage2: MSA refinement improved %d/%d families", n_imp,
-                 len(mats))
-    release_plans()  # the DP's cached plans; the tree stage needs the room
-    alignments = [Alignment(s.name, list(s.taxa), m, titles=list(s.titles))
-                  for s, m in zip(kept, mats)]
-    if cfg.trim:
-        trimmed = []
-        for a in alignments:
-            mask = gblocks_mask(a.mat)
-            if mask.sum() == 0:
-                continue
-            trimmed.append(Alignment(a.name, a.taxa, a.mat[:, mask],
-                                     titles=a.titles))
-        if trimmed:
-            alignments = trimmed
+
+    def align_and_trim():
+        nt_kw = {}
+        if cfg.alphabet == "nt":
+            nt_kw = dict(core=nt_core(), gap_open=float(NT_GAP_OPEN),
+                         gap_extend=float(NT_GAP_EXTEND))
+        mats = align_families_chunked(
+            [s.seqs for s in kept], store=store, deadline=deadline,
+            ckpt_key="s2_align_chunk", device=dev, **nt_kw)
+        if cfg.msa_refine_iters > 0:
+            mats, n_imp = refine_families(mats, iters=cfg.msa_refine_iters,
+                                          device=dev, **nt_kw)
+            log.info("stage2: MSA refinement improved %d/%d families",
+                     n_imp, len(mats))
+        release_plans()  # the DP's cached plans; the tree stage needs
+        # the room
+        alignments = [Alignment(s.name, list(s.taxa), m,
+                                titles=list(s.titles))
+                      for s, m in zip(kept, mats)]
+        if cfg.trim:
+            trimmed = []
+            for a in alignments:
+                mask = gblocks_mask(a.mat)
+                if mask.sum() == 0:
+                    continue
+                trimmed.append(Alignment(a.name, a.taxa, a.mat[:, mask],
+                                         titles=a.titles))
+            if trimmed:
+                alignments = trimmed
+        return alignments
+
+    alignments = store.cached("alignments", align_and_trim) \
+        if store is not None else align_and_trim()
     timings["align"] = time.time() - t0
     log.info("stage2: aligned %d families in %.1fs", len(alignments),
              timings["align"])
-    return _tree_stage(alignments, cfg, dev, timings)
+    check_deadline(deadline, "alignment")
+    return _tree_stage(alignments, cfg, dev, timings, store, deadline)
 
 
 def run_stage2_aligned(alignments: list[Alignment],
-                       cfg: Stage2Config | None = None,
-                       device=None) -> Stage2Result:
+                       cfg: Stage2Config | None = None, store=None,
+                       deadline=None, device=None) -> Stage2Result:
     """Stage 2 from aligned (trimmed) families to the support-decorated
-    ML tree, on the card unless `device="cpu"`."""
+    ML tree, on the card unless `device="cpu"`; `store` and `deadline`
+    as in the module docstring."""
     cfg = cfg or Stage2Config()
     check_config(cfg)
-    return _tree_stage(alignments, cfg, resolve_device(device), {})
+    return _tree_stage(alignments, cfg, resolve_device(device), {}, store,
+                       deadline)
 
 
 def substitution_model(model_name: str, alpha: float,
@@ -207,10 +224,14 @@ def substitution_model(model_name: str, alpha: float,
 
 
 def _tree_stage(alignments: list[Alignment], cfg: Stage2Config, dev,
-                timings: dict) -> Stage2Result:
+                timings: dict, store=None, deadline=None) -> Stage2Result:
     """Congruence filter -> concatenation -> Gamma shape -> matrix
     evaluation -> full tree -> support trees -> support decoration (the
     tail of the JAX `run_stage2`)."""
+
+    def cached(key, fn):
+        return store.cached(key, fn) if store is not None else fn()
+
     if cfg.congruence_filter:
         t0 = time.time()
         alignments = filter_congruent(alignments,
@@ -229,56 +250,69 @@ def _tree_stage(alignments: list[Alignment], cfg: Stage2Config, dev,
     # under WAG for the nucleotide alphabet too, as the JAX package does
     if cfg.estimate_alpha and cfg.full_tree_method != "nj":
         t0 = time.time()
-        start = nj_start_tree(cat.mat, cat.taxa, device=dev)
-        alpha = estimate_gamma_alpha(cat.mat, cat.taxa, start, device=dev)
+
+        def estimate():
+            start = nj_start_tree(cat.mat, cat.taxa, device=dev)
+            return estimate_gamma_alpha(cat.mat, cat.taxa, start, device=dev)
+
+        alpha = cached("gamma_alpha", estimate)
         timings["alpha_estimate"] = time.time() - t0
         log.info("stage2: gamma alpha = %.3f (%.1fs)", alpha,
                  timings["alpha_estimate"])
+        check_deadline(deadline, "alpha estimation")
 
     model_name = "WAG"
     if cfg.matrix_evaluation:
         t0 = time.time()
         names = cfg.matrix_evaluation \
             if isinstance(cfg.matrix_evaluation, list) else None
-        model_name, _ = evaluate_substitution_models(
-            cat.mat, cat.taxa, names, alpha=alpha, device=dev)
+        model_name, _ = cached("matrix_eval", lambda: (
+            evaluate_substitution_models(cat.mat, cat.taxa, names,
+                                         alpha=alpha, device=dev)))
         timings["matrix_evaluation"] = time.time() - t0
         log.info("stage2: matrix evaluation chose %s (%.1fs)", model_name,
                  timings["matrix_evaluation"])
+        check_deadline(deadline, "matrix evaluation")
 
     if cfg.alphabet == "nt":
         model_name = "GTR"
     model = substitution_model(model_name, alpha, cat.mat)
 
     t0 = time.time()
-    ll = None
-    if cfg.full_tree_method == "nj":
-        full = nj_tree(cat.mat, cat.taxa, device=dev)
-    elif cfg.full_tree_method in ("parsimony", "parsimony_bl"):
-        full, _ = parsimony_tree(
-            cat.mat, cat.taxa, model=model,
-            branch_lengths=cfg.full_tree_method == "parsimony_bl",
-            nni_rounds=cfg.nni_rounds, bl_steps=cfg.bl_steps, device=dev)
-    else:
+
+    def full_tree():
+        if cfg.full_tree_method == "nj":
+            return to_newick(nj_tree(cat.mat, cat.taxa, device=dev)), None
+        if cfg.full_tree_method in ("parsimony", "parsimony_bl"):
+            t, _ = parsimony_tree(
+                cat.mat, cat.taxa, model=model,
+                branch_lengths=cfg.full_tree_method == "parsimony_bl",
+                nni_rounds=cfg.nni_rounds, bl_steps=cfg.bl_steps, device=dev)
+            return to_newick(t), None
         fast = cfg.full_tree_method == "fast_ml"
-        full, ll = ml_tree(
+        t, ll = ml_tree(
             cat.mat, cat.taxa, model,
             nni_rounds=(2 if fast else cfg.nni_rounds),
             bl_steps=(60 if fast else cfg.bl_steps),
             bl_refine_steps=(30 if fast else max(cfg.bl_steps // 3, 40)),
-            spr_rounds=(1 if fast else 2), device=dev)
-    full = parse_newick(to_newick(full))  # the Newick round trip, as
-    # the JAX package keeps the full tree
+            spr_rounds=(1 if fast else 2), store=store, deadline=deadline,
+            ckpt_key="full_tree_state", device=dev)
+        return to_newick(t), ll
+
+    # the full tree kept as Newick, as the JAX package keeps it
+    full_nwk, ll = cached("full_tree", full_tree)
+    full = parse_newick(full_nwk)
     timings["full_tree"] = time.time() - t0
     log.info("stage2: full tree (%s) in %.1fs", cfg.full_tree_method,
              timings["full_tree"])
+    check_deadline(deadline, "full tree")
 
     t0 = time.time()
     reps = support_trees(
         cat, cfg.support_reps, cfg.seed, model=model,
         method=cfg.support_method, fraction=cfg.jackknife_fraction,
         nni_rounds=cfg.nni_rounds, bl_steps=cfg.support_bl_steps,
-        device=dev)
+        store=store, deadline=deadline, device=dev)
     timings["support_trees"] = time.time() - t0
     log.info("stage2: %d support trees in %.1fs", len(reps),
              timings["support_trees"])

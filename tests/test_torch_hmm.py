@@ -207,18 +207,58 @@ def test_buckets_of_arrays_match_p4():
     assert {k: v.tolist() for k, v in got.items()} == want
 
 
-def test_profile_score_pairs_refuses_what_is_not_ported(profiles):
-    hmms, bases = profiles
-    with pytest.raises(NotImplementedError, match="item 14"):
-        hmm.profile_score_pairs(bases, hmms, [(0, 0)], store=object(),
-                                device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        hmm.profile_score_pairs(bases, hmms, [(0, 0)], ckpt_key="k",
-                                device="cpu")
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_profile_score_pairs_resumes_from_a_store(profiles, sequences,
+                                                  tmp_path, monkeypatch):
+    """With a store and `ckpt_key`, a call stopped before its n-th launch
+    (chip_smoke.py's countdown) under the card's plan (one launch a
+    pack; the plain version scores it on the CPU) and resumed under the
+    reference buckets, and the other way round, gives one call's bits
+    exactly: the store's progress is a mask over the pairs, whatever
+    plan wrote it.  Unknown algorithms still raise, and no pairs give no
+    bits."""
+    from pepr_tpu_torch.pipeline.checkpoint import (CheckpointStore,
+                                                    Incomplete)
+    smoke = _smoke()
+    hmms = [h for h in profiles[0] if h.length <= 256]
+    seqs = [s for s in sequences if len(s) <= 512]
+    rng = np.random.default_rng(14)
+    pairs = [(int(a), int(b)) for a, b in zip(
+        rng.integers(0, len(seqs), 40), rng.integers(0, len(hmms), 40))]
+    kw = dict(device="cpu", batch_size=16)
+    one = hmm.profile_score_pairs(seqs, hmms, pairs, **kw)
+    stopped = 0
+    for first, then in ((True, False), (False, True)):
+        for n in range(1, 16):
+            store = CheckpointStore(str(tmp_path / f"{first}_{n}"))
+            monkeypatch.setattr(hmm, "card_plan", lambda dev: first)
+            try:
+                hmm.profile_score_pairs(seqs, hmms, pairs, store=store,
+                                        deadline=smoke.Countdown(n),
+                                        ckpt_key="hmm_viterbi", **kw)
+                break  # n - 1 launches are all the plan has
+            except Incomplete as e:
+                assert e.stage == "profile HMM scoring"
+                stopped += 1
+            done = store.load("hmm_viterbi")["done"]
+            assert done.dtype == bool and done.sum() < len(pairs)
+            monkeypatch.setattr(hmm, "card_plan", lambda dev: then)
+            got = hmm.profile_score_pairs(seqs, hmms, pairs, store=store,
+                                          ckpt_key="hmm_viterbi", **kw)
+            assert np.array_equal(got, one)
+            assert store.load("hmm_viterbi")["done"].all()
+    assert stopped >= 2 + 4  # two packs; four buckets of up to 16 pairs
     with pytest.raises(ValueError):
-        hmm.profile_score_pairs(bases, hmms, [(0, 0)], algorithm="msv",
+        hmm.profile_score_pairs(seqs, hmms, [(0, 0)], algorithm="msv",
                                 device="cpu")
-    assert hmm.profile_score_pairs(bases, hmms, [], device="cpu").shape == \
+    assert hmm.profile_score_pairs(seqs, hmms, [], device="cpu").shape == \
         (0,)
 
 

@@ -212,10 +212,40 @@ def test_rebuild_skips_equal_score_duplicates():
     _compare(got, want)
 
 
-def test_enhancer_refuses_what_is_not_ported(genomes):
+def test_enhancer_resumes_from_a_store(genomes, tmp_path):
+    """The unpinned 3-row case with a store, stopped at every poll that
+    follows saved work (chip_smoke.py's countdowns, each run resuming the
+    last one's store: alignment slices of 4 groups, the prefilter, each
+    scoring bucket): the end is one call's result exactly and the JAX
+    package's under `_compare`.  No groups give no groups."""
+    from test_torch_checkpoint import smoke
+
+    from pepr_tpu_torch.models import msa
+    from pepr_tpu_torch.pipeline.checkpoint import CheckpointStore
     ing, pool, groups = genomes
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tenh.enhance_homolog_groups(groups, ing, pool, store=object(),
-                                    device="cpu")
+    small = [SequenceSet(g.name, g.titles[:3], g.seqs[:3]) for g in groups
+             if len(g) >= 3]
+    kw = dict(outgroup_count=2, min_bits=40.0, device="cpu")
+    chunk, msa.ALIGN_CHUNK = msa.ALIGN_CHUNK, 4
+    try:
+        one = tenh.enhance_homolog_groups(small, ing, pool, **kw)
+        root = str(tmp_path / "ck")
+        got, saved, _ = smoke.interrupted_runs(
+            lambda d: tenh.enhance_homolog_groups(
+                small, ing, pool, store=CheckpointStore(root), deadline=d,
+                **kw), root, restart=True)
+    finally:
+        msa.ALIGN_CHUNK = chunk
+    for stage in ("family alignment", "group alignment", "profile prefilter",
+                  "profile HMM scoring", "profile scoring"):
+        assert stage in saved, (stage, saved)
+    assert [s.titles for s in got.enhanced_sets] == \
+        [s.titles for s in one.enhanced_sets]
+    assert got.selected_outgroups == one.selected_outgroups
+    assert got.genome_scores == one.genome_scores
+    want = jenh.enhance_homolog_groups(_jax_sets(small), _jax_sets(ing),
+                                       _jax_sets(pool), outgroup_count=2,
+                                       min_bits=40.0)
+    _compare(got, want)
     assert tenh.enhance_homolog_groups([], ing, pool, device="cpu") \
         .enhanced_sets == []

@@ -35,6 +35,7 @@ from pepr_tpu_torch.io.fasta import write_fasta
 from pepr_tpu_torch.pipeline import cli as tcli
 from pepr_tpu_torch.pipeline import refine as tref
 from pepr_tpu_torch.pipeline import reports as trep
+from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
 from pepr_tpu_torch.tree import parse_newick, rf_distance, to_newick
 from pepr_tpu_torch.utils.cli import RunProperties
@@ -239,13 +240,6 @@ def test_cli_main_passes_the_device(monkeypatch, capsys):
     assert "pepr_tpu_torch.pipeline.cli" in capsys.readouterr().out
 
 
-def test_run_pepr_refuses_what_is_not_ported():
-    for kw in ({"checkpoint_dir": "ck"}, {"time_budget": 10.0}):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            run_pepr(PeprConfig(**kw), genomes=[], outgroup_pool=[],
-                     device="cpu")
-
-
 def test_cli_runs_the_pipeline_on_the_cpu(tmp_path, capsys):
     """`main` on FASTA files, end to end on the CPU (no refinement, the
     default cutoff of 144 bits)."""
@@ -270,6 +264,36 @@ def test_cli_runs_the_pipeline_on_the_cpu(tmp_path, capsys):
                             ".nwk", ".sup", ".hs", ".clp", ".report.xml"))
 
 
+def test_cli_stops_and_resumes_with_checkpoint_and_time_budget(tmp_path,
+                                                              capsys):
+    """`-checkpoint DIR -time_budget 0` stops at the first poll with
+    Incomplete (it propagates, as from the JAX CLI); the same command
+    without the budget resumes and prints the tree a run without a
+    checkpoint prints."""
+    ing, pool, _ = simulate_genomes(
+        np.random.default_rng(62), n_ingroup=4, n_families=12, n_random=2,
+        median_len=80.0, max_len=120, n_long=0)
+    files = []
+    for g in ing + pool:
+        files.append(str(tmp_path / f"{g.taxon}.faa"))
+        write_fasta(files[-1], g)
+    argv = ["-run_name", "cli", "-genome_file", *files[:-1], "-outgroup",
+            files[-1], "-outgroup_count", "1", "-track", "fast",
+            "-support_reps", "3", "-refine", "false", "-device", "cpu"]
+    ck = ["-checkpoint", str(tmp_path / "ck")]
+    with pytest.raises(Incomplete):
+        tcli.main(argv + ck + ["-time_budget", "0", "-out_dir",
+                               str(tmp_path / "a")])
+    capsys.readouterr()
+    newick = []
+    for extra in (ck, []):
+        assert tcli.main(argv + extra + ["-out_dir", str(tmp_path / "b")]) \
+            == 0
+        newick.append(capsys.readouterr().out.strip().splitlines()[-1])
+    assert newick[0] == newick[1]
+    assert "stage1.pkl" in os.listdir(tmp_path / "ck")
+
+
 # -- run_pepr end to end against the JAX package --------------------------
 
 REPS = 4
@@ -287,8 +311,7 @@ def _config(cls, out_dir):
     return cfg
 
 
-@pytest.fixture(scope="module")
-def small_runs(tmp_path_factory):
+def _small_input():
     """5 ingroup genomes of ~34 proteins under 128 residues and a pool
     genome; the generating tree's clade (0, 1, 2) has an internal branch
     of 1e-5, which leaves its support below REPS and forces one
@@ -300,6 +323,13 @@ def small_runs(tmp_path_factory):
         np.random.default_rng(5), n_ingroup=5, n_pool=1, n_families=30,
         n_random=4, median_len=90.0, max_len=127, n_long=0,
         ingroup_tree=tree)
+    return ing, pool
+
+
+@pytest.fixture(scope="module")
+def small_runs(tmp_path_factory):
+    """The port's and the JAX package's runs on `_small_input`."""
+    ing, pool = _small_input()
     d_t = str(tmp_path_factory.mktemp("port"))
     d_j = str(tmp_path_factory.mktemp("jax"))
     got = run_pepr(_config(PeprConfig, d_t), genomes=ing,
@@ -367,6 +397,39 @@ def test_run_pepr_files_match_jax(small_runs):
     assert skeleton(read(d_t, ".report.xml")) == \
         skeleton(read(d_j, ".report.xml"))
     assert "refine_1" in read(d_t, ".report.xml")
+
+
+def test_run_pepr_accepts_checkpoint_and_time_budget(small_runs, tmp_path):
+    """run_pepr with `checkpoint_dir` and `time_budget=0.0` stops at its
+    first poll (tests/test_checkpoint.py's case); the same configuration
+    without the budget resumes the store to the uninterrupted port run's
+    tree, LL and files byte for byte (but the report's seconds), and so
+    to the JAX package's run under `_same_tree`."""
+    got, want, d_t, _ = small_runs
+    ing, pool = _small_input()
+    ck, out = str(tmp_path / "ck"), str(tmp_path / "out")
+    cfg = _config(PeprConfig, out)
+    cfg.checkpoint_dir, cfg.time_budget = ck, 0.0
+    with pytest.raises(Incomplete) as stop:
+        run_pepr(cfg, genomes=ing, outgroup_pool=pool, device="cpu")
+    assert stop.value.stage == "homology SW"
+    cfg.time_budget = None
+    res = run_pepr(cfg, genomes=ing, outgroup_pool=pool, device="cpu")
+    assert res.newick == got.newick
+    assert res.stage2.log_likelihood == got.stage2.log_likelihood
+    assert res.refine_rounds == 1 and res.stage1_counts == got.stage1_counts
+    assert os.path.isdir(os.path.join(ck, "sub1"))
+    for sfx in (".nwk", "_final_rooted.nwk", "_final_rooted.json", ".sup",
+                ".hs", ".clp", ".report.xml"):
+        with open(os.path.join(out, f"small{sfx}")) as a, \
+                open(os.path.join(d_t, f"small{sfx}")) as b:
+            x, y = a.read(), b.read()
+        if sfx == ".report.xml":
+            # wall seconds; a resumed stage's sub-phases are its load
+            x, y = ("\n".join(ln for ln in _elapsed_free(z).splitlines()
+                              if "<timing " not in ln) for z in (x, y))
+        assert x == y, sfx
+    _same_tree(res.tree, want.tree)
 
 
 # -- chip_smoke.py's pepr input ------------------------------------------

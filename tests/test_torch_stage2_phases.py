@@ -125,7 +125,7 @@ def test_genomes_to_tree_config(monkeypatch):
     class Stop(Exception):
         pass
 
-    def stage2_stub(hg_sets, cfg, device=None):
+    def stage2_stub(hg_sets, cfg, store=None, deadline=None, device=None):
         seen.append(cfg)
         raise Stop
 
