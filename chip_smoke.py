@@ -1,5 +1,6 @@
 """Drive the port's paths once on one NVIDIA H100 and check them: stage
-1 with and without the HMM enhancer, stage 2, and run_pepr, the
+1 with and without the HMM enhancer, stage 2, the tools (per-site
+log-likelihoods, the AU test and the six CLIs), and run_pepr, the
 reference's default run from genomes to its output files.
 
     python3 chip_smoke.py [--seed 0]
@@ -131,7 +132,40 @@ Phases, each printing one JSON line with the elapsed seconds:
            cotangent), and both kernels at A's full tree under a model
            matrix evaluation did not choose (BLOSUM62F, or WAGF if
            BLOSUM62F won)
-  pepr     run_pepr with PeprConfig.default_track() (ml full tree,
+  tools    the tools on the data phase's 53 taxa (tools_phase): (a)
+           per_site_log_likelihoods of 8 trees (the generating tree,
+           the stage2 full tree, the NJ tree, TOOLS_NNI NNI neighbours
+           of the generating tree, a random topology) over the 64,433
+           columns under the CLIs' WAG+Gamma(1), the pruning launch
+           counts reset just before and read just after (one forward
+           launch); the launch repeated, and each tree launched alone,
+           must give its row bit for bit; every row against the plain
+           version (FWD_RTOL), each total against a float64 plain one
+           (FINAL_LL_RTOL), the launch timed beside its bound; (b)
+           au_test on those rows with AU_REPS replicates (cut from the
+           CLI's 2,000): the highest-LL tree not rejected, the random
+           topology rejected, its host seconds; then on each of the
+           first AU_FAMILIES families' columns with the CLI's 2,000: the
+           same verdicts, and the multiscale fit run for some tree (an
+           AU strictly between 0 and 1); (c) the six CLIs through
+           their main(argv) on files in a temporary directory: the
+           alignment written as FASTA and phylip must parse back;
+           tree_comparison (the stage2 full tree and the random
+           topology, -align): its .sitelh within SITELH_TOL of (a)'s
+           rows, its RF line compare_trees'; au_test from that .sitelh
+           and from the phylip file and the trees (AU_CLI_REPS
+           replicates each), identical reports;
+           tree_support: decorate_supports' tree on the stage2 full tree
+           and its replicates; set_extractor on the stage1 run's groups:
+           one file per group with its members; neighbor_masher on the
+           first MASH_GENOMES stage1 genomes with the pool genome as the
+           outgroup: the pool genome picked, a symmetric distance
+           matrix; (d)
+           compare_builders (TOOLS_METHODS) on the first TOOLS_COLUMNS
+           columns, the launch counts reset and read around it, each
+           method's LL within FINAL_LL_RTOL of the plain path's, then
+           both kernels at its three trees against their plain versions
+  pepr    run_pepr with PeprConfig.default_track() (ml full tree,
            PEPR_REPS replicates, refinement) on the pepr_genomes input,
            files written and a checkpoint store kept in a temporary
            directory (the seconds in CheckpointStore.save timed by a
@@ -243,6 +277,26 @@ PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
 # version (one every SCORE_BATCH / PLAIN_SPR_TREES)
 PLAIN_REP_TREES = 8  # replicates of a path's block held against the plain
 # version
+# tools: the AU test's replicates on the 8 trees (the CLI's default of
+# 2,000 takes ~100 s of host draws and 1 GB of counts a scale at 64,433
+# columns) and in the two AU CLI runs, whose reports are compared with
+# each other; the families tested one by one (their columns of the same
+# rows) and their replicates, the CLI's default; the ingroup genomes
+# neighbor_masher sketches beside the pool (all 11 took 8.4-12.8 s of
+# host numpy on the card's machine); the columns and methods of
+# compare_builders, the NNI neighbours of the generating tree scored,
+# the AU test's level, and how far a .sitelh value (six decimals) may
+# be from the row it was written from
+AU_REPS = 100
+AU_CLI_REPS = 20
+AU_FAMILIES = 8
+AU_FAMILY_REPS = 2000
+MASH_GENOMES = 4
+TOOLS_COLUMNS = 8192
+TOOLS_METHODS = ("fast_ml", "nj", "parsimony_bl")
+TOOLS_NNI = 4
+AU_LEVEL = 0.05
+SITELH_TOL = 1e-6
 # every depth cut made for the 600 s budget, printed in the stage2_start
 # line (PERF.md §4 has the seconds each saved)
 CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
@@ -252,7 +306,13 @@ CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
         "phase)",
         f"profile_stage1 ingroup {S1_INGROUP} -> {PROFILE_S1_INGROUP} "
         "genomes (the stage2_options phase)",
-        "stage2_options C: 80 nucleotide families, not 120 (the same)"]
+        "stage2_options C: 80 nucleotide families, not 120 (the same)",
+        f"tools au_test reps 2000 -> {AU_REPS}, in the two CLI runs -> "
+        f"{AU_CLI_REPS} (the tools phase)",
+        f"tools neighbor_masher genomes {S1_INGROUP} -> {MASH_GENOMES} "
+        "(the same)",
+        f"tools compare_builders columns {N_COLUMNS} -> {TOOLS_COLUMNS} "
+        "(the same)"]
 FINAL_LL_RTOL = 1e-5  # a path's final LL, kernel against the plain path
 # and against the float64 plain LL
 # largest transition probability allowed between a dead state (pi <=
@@ -1065,9 +1125,10 @@ def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
                 bound_share=round(tot_bound / tot_ms, 4))
 
 
-def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
+def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
     """The stage-1 path: data_stage1, sw_kernel, small_stage1, stage1 and
-    profile_stage1; returns the SW kernel's entry of the kernels line."""
+    profile_stage1; returns the SW kernel's entry of the kernels line and
+    the stage1 run's input and groups (`ingroup`, `pool`, `groups`)."""
     import numpy as np
     import torch
 
@@ -1259,7 +1320,7 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
         torch.cuda.synchronize()
     phase("profile_stage1", ingroup=PROFILE_S1_INGROUP, pool=len(pool),
           **device_time(prof, time.time() - t))
-    return entry
+    return entry, dict(ingroup=ingroup, pool=pool, groups=res.hg_sets)
 
 
 # -- the HMM enhancement (stage 1 with use_hmm=True) and run_pepr
@@ -2234,6 +2295,370 @@ def stage2_options_phase(alignments, truth, seed: int, dev,
     return checks
 
 
+# -- the tools (pepr_tpu_torch.tools): tree comparison, the AU test, the
+# CLIs, the tree-builder comparison
+
+def tool_trees(truth, full_tree, mat, taxa, seed: int, dev) -> dict:
+    """The trees the tools phase scores, by name: the generating tree,
+    the stage2 full tree, the NJ tree of `mat` (rows `taxa`), TOOLS_NNI
+    NNI neighbours of the generating tree (each fresh edge 0.05) and one
+    random topology."""
+    import numpy as np
+    from pepr_tpu_torch.models.treebuild import (_nni_candidate, _nni_moves,
+                                                 nj_tree)
+    from pepr_tpu_torch.ops.likelihood import (TreeArrays, arrays_to_tree,
+                                               tree_to_arrays)
+    from pepr_tpu_torch.utils.simulate import random_tree
+    rng = np.random.default_rng(seed + 20)
+    arr = tree_to_arrays(truth, taxa)
+    moves = _nni_moves(arr.children, len(taxa))
+    trees = {"generating": truth, "stage2_full": full_tree,
+             "nj": nj_tree(mat, taxa, device=dev)}
+    for k, i in enumerate(rng.choice(len(moves), size=TOOLS_NNI,
+                                     replace=False)):
+        ch, blen = _nni_candidate(arr.children, arr.blen, len(taxa),
+                                  [moves[i]])
+        trees[f"nni{k + 1}"] = arrays_to_tree(
+            TreeArrays(ch, blen, arr.node_of_tree_node, taxa))
+    trees["random"] = random_tree(taxa, rng)
+    return trees
+
+
+def au_verdicts(rows, names: list[str], reps: int) -> dict:
+    """au_test on the per-site rows (host numpy): the tree with the
+    highest total LL must not be rejected (AU >= AU_LEVEL) and the
+    random topology must be.  `fitted` counts the trees whose AU came
+    from the multiscale fit, strictly between 0 and 1 (a tree that wins
+    or loses every replicate takes au_test's saturated 1 or 0)."""
+    import numpy as np
+    from pepr_tpu_torch.models.au_test import au_test
+    t = time.time()
+    res = au_test(rows, n_reps=reps)
+    secs = time.time() - t
+    totals = rows.astype(np.float64).sum(axis=1)
+    best = names[int(np.argmax(totals))]
+    out = dict(seconds=secs, reps=reps, best=best,
+               fitted=int(((res.au > 0) & (res.au < 1)).sum()), by_tree={
+        n: dict(total_ll=float(totals[i]), au=float(res.au[i]),
+                np_bp=float(res.np_bp[i]), obs_dll=float(res.obs_diff[i]))
+        for i, n in enumerate(names)})
+    if not out["by_tree"][best]["au"] >= AU_LEVEL:
+        fail(f"the AU test rejects the highest-LL tree {best}: {out}")
+    if not out["by_tree"]["random"]["au"] < AU_LEVEL:
+        fail(f"the AU test does not reject the random topology: {out}")
+    return out
+
+
+def family_au(rows, spans, names: list[str], reps: int) -> dict:
+    """au_verdicts on each family's columns of the rows (`spans`: (start,
+    stop) column pairs), a gene-by-gene topology test: at a family's
+    ~160 columns the trees near the generating one trade wins, so the
+    multiscale fit must run for some tree (`fitted` > 0), which the
+    full width, where every tree wins or loses every replicate, never
+    reaches."""
+    t = time.time()
+    fams = [au_verdicts(rows[:, a:b], names, reps) for a, b in spans]
+    out = dict(seconds=time.time() - t, reps=reps, families=len(fams),
+               columns=[int(b - a) for a, b in spans],
+               best=[f["best"] for f in fams],
+               fitted=sum(f["fitted"] for f in fams),
+               au=[{n: round(v["au"], 4) for n, v in f["by_tree"].items()}
+                   for f in fams])
+    if out["fitted"] == 0:
+        fail(f"no family's AU test reached the multiscale fit: {out}")
+    return out
+
+
+def _cli(main, argv) -> tuple[str, float]:
+    """(stdout, seconds) of one in-process CLI run, which must exit 0."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t = time.time()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    if rc != 0:
+        fail(f"{main.__module__} {argv} exited {rc}")
+    return buf.getvalue(), time.time() - t
+
+
+def cli_runs(tmp: str, mat, taxa, trees: dict, rows, support_trees,
+             genomes, pool, groups, device_args: list[str],
+             reps: int) -> dict:
+    """The six CLIs, each through its main(argv) on files written to
+    `tmp` (`device_args` go to the ones that score trees): their seconds
+    and checks, failing the run where one disagrees.  `mat` (rows
+    `taxa`) is the alignment `rows`, the per-site LLs of `trees` in
+    their order, were scored on; `genomes` and `pool` are written as
+    FASTA, `groups` as a set file; `reps` is the AU CLI's -reps."""
+    import numpy as np
+    from pepr_tpu_torch.io.alignio import (parse_alignment,
+                                           write_fasta_alignment,
+                                           write_phylip)
+    from pepr_tpu_torch.io.fasta import read_fasta, write_fasta
+    from pepr_tpu_torch.models.msa import Alignment
+    from pepr_tpu_torch.models.treecompare import compare_trees
+    from pepr_tpu_torch.tools import (au_test, neighbor_masher,
+                                      set_extractor, tree_comparison,
+                                      tree_support)
+    from pepr_tpu_torch.tree import (decorate_supports, parse_newick,
+                                     to_newick)
+
+    def path(name: str) -> str:
+        return os.path.join(tmp, name)
+
+    def write(name: str, text: str) -> str:
+        with open(path(name), "w") as fh:
+            fh.write(text)
+        return path(name)
+
+    names = list(trees)
+    out = {}
+    aln = Alignment("tools", taxa, mat)
+    fasta = write("aln.afa", write_fasta_alignment(aln))
+    phylip = write("aln.phy", write_phylip(aln))
+    for f in (fasta, phylip):
+        with open(f) as fh:
+            back = parse_alignment(fh.read())
+        if back.taxa != taxa or not np.array_equal(back.mat, mat):
+            fail(f"{f} does not parse back to the alignment written")
+    # tree_comparison: the stage2 full tree against the random topology
+    pair = ["stage2_full", "random"]
+    texts = [to_newick(trees[n]) + "\n" for n in pair]
+    nwk = [write(f"{n}.nwk", x) for n, x in zip(pair, texts)]
+    sitelh = path("pair.sitelh")
+    text, secs = _cli(tree_comparison.main,
+                      nwk + ["-align", fasta, "-sitelh", sitelh]
+                      + device_args)
+    want = compare_trees(*(parse_newick(x) for x in texts))
+    got = au_test.read_sitelh(sitelh)
+    want_rows = rows[[names.index(n) for n in pair]].astype(np.float64)
+    err = float(np.abs(got - want_rows).max()) \
+        if got.shape == want_rows.shape else float("inf")
+    out["tree_comparison"] = dict(seconds=secs, rf=want["rf"],
+                                  sitelh_max_abs_diff=err)
+    if f"rf\t{want['rf']}" not in text.splitlines():
+        fail(f"tree_comparison's RF line is not compare_trees' "
+             f"({want['rf']}): {text}")
+    if not err <= SITELH_TOL:
+        fail(f"tree_comparison's .sitelh differs from the per-site rows by "
+             f"{err} (shape {got.shape})")
+    # au_test from that .sitelh, and from the alignment file and trees
+    both = write("pair.nwk", "".join(texts))
+    reports = {}
+    for how, argv in (("sitelh", ["-sitelh", sitelh]),
+                      ("alignment", ["-alignment", phylip, "-trees", both]
+                       + device_args)):
+        reports[how], secs = _cli(au_test.main,
+                                  argv + ["-reps", str(reps)])
+        out[f"au_test_{how}"] = dict(seconds=secs)
+    if reports["sitelh"] != reports["alignment"]:
+        fail(f"au_test -sitelh and -alignment disagree: {reports}")
+    out["au_test_report"] = reports["sitelh"].splitlines()
+    # tree_support: the stage2 full tree decorated by its replicates
+    main_f = write("full.nwk", to_newick(trees["stage2_full"]) + "\n")
+    sup_f = write("support.nwk", "".join(to_newick(t) + "\n"
+                                         for t in support_trees))
+    text, secs = _cli(tree_support.main, [main_f, sup_f])
+    want = to_newick(decorate_supports(
+        parse_newick(to_newick(trees["stage2_full"])),
+        [parse_newick(to_newick(t)) for t in support_trees]))
+    out["tree_support"] = dict(seconds=secs, replicates=len(support_trees))
+    if text != want + "\n":
+        fail("tree_support's tree differs from decorate_supports'")
+    # set_extractor: the groups from the genomes' FASTA files
+    files = []
+    for g in genomes + pool:
+        files.append(path(f"{g.name}.faa"))
+        write_fasta(files[-1], g)
+    set_file = write("groups.txt", "".join("\t".join(g.ids) + "\n"
+                                           for g in groups))
+    hg = path("hg")
+    text, secs = _cli(set_extractor.main, ["-set_file", set_file,
+                                           "-genome_file", *files,
+                                           "-out_dir", hg])
+    made = sorted(os.listdir(hg))
+    out["set_extractor"] = dict(seconds=secs, sets=len(made))
+    if text != f"wrote {len(groups)} set files to {hg}\n" \
+            or len(made) != len(groups):
+        fail(f"set_extractor wrote {len(made)} files for {len(groups)} "
+             f"groups: {text}")
+    for i, g in enumerate(groups):
+        back = read_fasta(os.path.join(hg, f"set_{i}.faa"))
+        if back.titles != g.titles:
+            fail(f"set_{i}.faa does not hold group {i}'s members")
+    # neighbor_masher: the first MASH_GENOMES genomes, the pool as the
+    # outgroup candidates
+    masher = genomes[:MASH_GENOMES]
+    text, secs = _cli(neighbor_masher.main,
+                      ["-genome_file", *files[:len(masher)],
+                       "-outgroup", *files[len(genomes):]])
+    lines = text.splitlines()
+    want = "selected_outgroups\t" + "\t".join(g.taxon for g in pool)
+    d = np.array([[float(x) for x in ln.split("\t")[1:]]
+                  for ln in lines[2:]])
+    out["neighbor_masher"] = dict(seconds=secs, genomes=len(masher),
+                                  selected=lines[0],
+                                  distance_range=[float(d.min()),
+                                                  float(d.max())])
+    if lines[0] != want or d.shape != (len(masher),) * 2 \
+            or not np.array_equal(d, d.T) or np.diag(d).any() \
+            or not 0 < d[~np.eye(len(d), dtype=bool)].min():
+        fail(f"neighbor_masher: {lines[:2]} ... {d.shape}")
+    return out
+
+
+def builder_runs(mat, taxa, dev) -> dict:
+    """compare_builders (fast_ml, nj, parsimony_bl) on `mat`, the pruning
+    launch counts reset just before and read just after; each method's
+    LL against the plain path's on the same tree (FINAL_LL_RTOL).
+    Returns its numbers and the trees (`trees`, by method)."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.ops.likelihood import WagModel
+    from pepr_tpu_torch.tools.treebuilder_compare import compare_builders
+    from pepr_tpu_torch.tree import parse_newick
+    methods = list(TOOLS_METHODS)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    pruning.reset_launch_counts()
+    t = time.time()
+    res = compare_builders(mat, taxa, methods, device=dev)
+    wall = time.time() - t
+    launches = dict(pruning.LAUNCHES)
+    model = WagModel.create(alpha=res["alpha"])
+    pi = torch.as_tensor(model.pi, device=dev)
+    codes = torch.as_tensor(mat, device=dev)
+    trees = {m: parse_newick(res[m]["tree"]) for m in methods}
+    out = dict(seconds=wall, alpha=res["alpha"], rf=res["rf"],
+               launches=launches, methods={})
+    for m in methods:
+        ch, pm = tree_tensors([trees[m]], taxa, model, dev)
+        with torch.no_grad():
+            plain = float(pruning.site_ll_reference(codes, ch, pm, pi)
+                          .double().sum())
+        ll = res[m]["log_likelihood"]
+        rel = abs(ll - plain) / abs(plain)
+        out["methods"][m] = dict(seconds=res[m]["seconds"],
+                                 log_likelihood=ll, ll_plain=plain,
+                                 ll_rel=rel)
+        if not np.isfinite(ll) or not rel <= FINAL_LL_RTOL:
+            fail(f"compare_builders' {m} LL {ll} disagrees with the plain "
+                 f"path's {plain}")
+    return dict(out, trees=trees)
+
+
+def tools_phase(cat, truth, full_tree, support_trees, s1: dict, seed: int,
+                dev, tmp: str) -> dict:
+    """The tools phase.  (a) per_site_log_likelihoods of tool_trees over
+    the data phase's concatenation in one forward launch (the count
+    reset just before and read just after), each row equal to a launch
+    of its tree alone, all rows against the plain version and each total
+    against a float64 plain one, the launch timed beside its bound;
+    (b) au_verdicts on those rows; (c) cli_runs; (d) builder_runs on
+    the first TOOLS_COLUMNS columns, then both kernels at its three
+    trees' shape.  Prints the tools line; returns the kernel checks."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.models.treecompare import (per_site_log_likelihoods,
+                                                   tree_batches)
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.ops.likelihood import WagModel, transition_matrices
+    t_phase = time.time()
+    taxa = cat.taxa
+    # the CLIs' model (WAG+Gamma at alpha 1), so that their .sitelh and
+    # reports can be held against these rows
+    model = WagModel.create()
+    trees = tool_trees(truth, full_tree, cat.mat, taxa, seed, dev)
+    names = list(trees)
+    # (a)
+    torch.cuda.synchronize()
+    pruning.reset_launch_counts()
+    t = time.time()
+    rows = per_site_log_likelihoods(list(trees.values()), cat.mat, taxa,
+                                    device="cuda")
+    a_secs = time.time() - t
+    launches = dict(pruning.LAUNCHES)
+    if launches != {"pruning_fwd": 1, "pruning_bwd": 0}:
+        fail(f"per_site_log_likelihoods made {launches} launches, not one "
+             f"forward launch")
+    batches = tree_batches(list(trees.values()), taxa, dev)
+    if len(batches) != 1 or rows.dtype != np.float32 \
+            or rows.shape != (len(trees), cat.length):
+        fail(f"the tools' trees are not one batch or the rows are not "
+             f"float32 ({len(batches)}, {rows.dtype}, {rows.shape})")
+    _, ch, blen = batches[0]
+    pm = transition_matrices(model, blen).contiguous()
+    pi = torch.as_tensor(model.pi, device=dev)
+    codes = torch.as_tensor(cat.mat, device=dev)
+    rows_d = torch.as_tensor(rows, device=dev)
+    relaunch = bool(torch.equal(pruning.pruning_fwd(codes, ch, pm, pi),
+                                rows_d))
+    alone = [bool(torch.equal(pruning.pruning_fwd(
+        codes, ch[b:b + 1], pm[b:b + 1], pi)[0], rows_d[b]))
+        for b in range(len(trees))]
+    if not relaunch or not all(alone):
+        fail(f"per-tree rows depend on the batch: relaunch {relaunch}, "
+             f"alone {alone}")
+    wide = {}
+    with torch.no_grad():
+        for b, n in enumerate(names):
+            w = float(pruning.site_ll_reference(
+                codes, ch[b:b + 1], pm[b:b + 1].double(), pi.double()).sum())
+            k = float(rows[b].astype(np.float64).sum())
+            wide[n] = dict(kernel=k, float64=w, rel=abs(k - w) / abs(w))
+            if not wide[n]["rel"] <= FINAL_LL_RTOL:
+                fail(f"tree {n}: the kernel's total LL {k} disagrees with "
+                     f"the float64 plain one {w}")
+    shape = dict(trees=len(trees), sites=cat.length, codes="shared",
+                 **check_kernels(codes, ch, pm, pi, None, grad=False))
+    del codes, rows_d, pm
+    torch.cuda.empty_cache()
+    a = dict(seconds=a_secs, trees=names, launches=launches,
+             relaunch_identical=relaunch, alone_identical=alone,
+             total_ll_vs_float64=wide)
+    # (b)
+    b = au_verdicts(rows, names, AU_REPS)
+    b["families"] = family_au(rows, cat.spans[:AU_FAMILIES], names,
+                              AU_FAMILY_REPS)
+    # (c)
+    t = time.time()
+    c = cli_runs(tmp, cat.mat, taxa, trees, rows, support_trees,
+                 s1["ingroup"], s1["pool"], s1["groups"], [], AU_CLI_REPS)
+    c["seconds"] = time.time() - t
+    # (d)
+    d = builder_runs(cat.mat[:, :TOOLS_COLUMNS].copy(), taxa, dev)
+    for k, n in d["launches"].items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched by compare_builders")
+    model_d = WagModel.create(alpha=d["alpha"])
+    batches = tree_batches(list(d.pop("trees").values()), taxa, dev)
+    if len(batches) != 1:
+        fail("compare_builders' trees are not one batch")
+    _, ch, blen = batches[0]
+    codes = torch.as_tensor(cat.mat[:, :TOOLS_COLUMNS].copy(), device=dev)
+    builders = dict(trees=ch.shape[0], sites=TOOLS_COLUMNS, codes="shared",
+                    **check_kernels(codes, ch, transition_matrices(
+                        model_d, blen).contiguous(),
+                        torch.as_tensor(model_d.pi, device=dev),
+                        torch.ones((ch.shape[0], TOOLS_COLUMNS),
+                                   device=dev)))
+    del codes
+    phase("tools", seconds=round(time.time() - t_phase, 3),
+          config=dict(au_reps=AU_REPS, au_cli_reps=AU_CLI_REPS,
+                      au_families=AU_FAMILIES,
+                      au_family_reps=AU_FAMILY_REPS,
+                      mash_genomes=MASH_GENOMES,
+                      tools_columns=TOOLS_COLUMNS,
+                      methods=list(TOOLS_METHODS)),
+          a=a, b=b, c=c, d=d,
+          kernel_shapes=dict(per_site_export=shape,
+                             compare_builders=builders))
+    return {"kernel_shapes": {"per_site_export": shape,
+                              "compare_builders": builders}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2294,7 +2719,7 @@ def main(argv=None) -> int:
             if "entry function" in ln or "registers" in ln or "spill" in ln]
         for n, lg in logs.items()})
 
-    sw_entry = stage1_phases(args.seed, dev, sm_clock)
+    sw_entry, s1 = stage1_phases(args.seed, dev, sm_clock)
     h = hmm_phases(args.seed, dev, sm_clock)
 
     # -- data
@@ -2566,16 +2991,24 @@ def main(argv=None) -> int:
         if n <= 0:
             fail(f"kernel {k} was not launched on the main path")
 
+    s2_trees = (res.full_tree, res.support_trees)
     del res
 
     # -- stage2_options: stage 2's other options at the same width
     o_checks = stage2_options_phase(alignments, truth, args.seed, dev,
                                     sm_clock)
 
+    # -- tools: per-site LLs of competing trees, the AU test, the six
+    # CLIs and the tree-builder comparison
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t_checks = tools_phase(cat, truth, *s2_trees, s1, args.seed, dev,
+                               tmp)
+    del s1, s2_trees
+
     # -- pepr: the reference's default run, genomes to the output files,
     # with a checkpoint store; resume: that store re-run, and a small
     # run interrupted and resumed
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         p_launches, p_checks, first, p_cfg, save_stats, p_wall = \
             pepr_phase(h, dev, sm_clock, tmp)
@@ -2597,7 +3030,7 @@ def main(argv=None) -> int:
     # largest over every shape checked
     every = list(shapes.values()) + [
         v for c in (checks, p_checks, o_checks["a"], o_checks["b"],
-                    o_checks["c"])
+                    o_checks["c"], t_checks)
         for v in c["kernel_shapes"].values()]
 
     def entry(k):

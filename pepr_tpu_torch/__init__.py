@@ -8,8 +8,11 @@ FASTA and blast8 I/O, trees, simulator) are its own copies.  Stage 1
 through a hand-written CUDA kernel (csrc/sw.cu); stage 2's pruning
 likelihood and its gradient run as hand-written CUDA kernels
 (csrc/pruning.cu).  The kernels are built with nvcc at first use
-(ops/_cuda.py).  Entry points run on the card unless the caller passes
-device="cpu".
+(ops/_cuda.py).  The tools (tools/: tree comparison with per-site
+log-likelihoods, the AU test, support decoration, set extraction,
+MinHash distances, the tree-builder comparison) run as
+`python -m pepr_tpu_torch.tools.<name>`.  Entry points run on the card
+unless the caller passes device="cpu".
 """
 
 __version__ = "0.1.0"

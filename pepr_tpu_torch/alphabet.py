@@ -43,20 +43,21 @@ def encode(seq: str | bytes) -> np.ndarray:
     return ENCODE_LUT[raw]
 
 
+# code -> ASCII byte for `decode`: the table's characters, then X for
+# every code outside the table (PAD is handled apart)
+_DECODE_BYTES = np.frombuffer(("".join(CODE_TO_CHAR) + "X").encode("ascii"),
+                              dtype=np.uint8)
+
+
 def decode(codes: np.ndarray, pad_char: str = "") -> str:
     """Decode an int8 code array back to a string (PAD codes dropped by
-    default, or rendered as `pad_char`)."""
+    default, or rendered as `pad_char`).  The JAX package's per-code
+    loop as one table lookup: the same string."""
     codes = np.asarray(codes)
-    out = []
-    for c in codes:
-        if c == PAD:
-            if pad_char:
-                out.append(pad_char)
-        elif 0 <= c < len(CODE_TO_CHAR):
-            out.append(str(CODE_TO_CHAR[c]))
-        else:
-            out.append("X")
-    return "".join(out)
+    n = len(CODE_TO_CHAR)
+    raw = _DECODE_BYTES[np.where((codes >= 0) & (codes < n), codes, n)]
+    raw[codes == PAD] = 0  # a byte no code maps to, replaced below
+    return raw.tobytes().decode("ascii").replace("\0", pad_char)
 
 
 # -- nucleotide alphabet (FastTree -nt mode support,

@@ -40,7 +40,9 @@ def test_port_imports_without_jax_or_pepr_tpu():
         [sys.executable, "-c", f"ROOT = {ROOT!r}\n" + BOUNDARY],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+    # 63 modules since the tools (models/treecompare, au_test,
+    # neighbor_masher, io/alignio, setextract, utils/stats, tools/*)
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 63
 
 
 def test_port_sources_never_name_jax_modules():
@@ -85,15 +87,28 @@ def test_device_default_raises_without_card(no_cuda):
 @pytest.mark.parametrize("entry", ["stage2", "ml_tree", "distances",
                                    "loglik", "replicates", "support",
                                    "stage1", "homology_search",
-                                   "candidate_pairs", "sw_pairs", "mcl"])
-def test_entry_points_raise_not_fall_back(no_cuda, entry):
+                                   "candidate_pairs", "sw_pairs", "mcl",
+                                   "per_site_lls", "compare_builders",
+                                   "tree_comparison_cli", "au_test_cli"])
+def test_entry_points_raise_not_fall_back(no_cuda, entry, tmp_path):
+    from pepr_tpu_torch.io.alignio import write_fasta_alignment
     from pepr_tpu_torch.io.fasta import SequenceSet
     from pepr_tpu_torch.models import homology, support, treebuild
     from pepr_tpu_torch.models.concat import concatenate
+    from pepr_tpu_torch.models.treecompare import per_site_log_likelihoods
     from pepr_tpu_torch.ops import kmer_filter, likelihood, mcl
     from pepr_tpu_torch.parallel import replicates
     from pepr_tpu_torch.pipeline import stage1, stage2
+    from pepr_tpu_torch.tools import au_test, tree_comparison
+    from pepr_tpu_torch.tools.treebuilder_compare import compare_builders
+    from pepr_tpu_torch.tree import to_newick
     aln, tree = _tiny()
+    aln_file = tmp_path / "aln.afa"
+    aln_file.write_text(write_fasta_alignment(aln))
+    tree_file = tmp_path / "t.nwk"
+    tree_file.write_text(to_newick(tree) + "\n")
+    trees_file = tmp_path / "trees.nwk"
+    trees_file.write_text(2 * (to_newick(tree) + "\n"))
     genome = SequenceSet("g", [f"p{i} [G s]" for i in range(len(aln.mat))],
                          list(aln.mat))
     prof = kmer_filter.kmer_profiles(genome.seqs)
@@ -118,6 +133,15 @@ def test_entry_points_raise_not_fall_back(no_cuda, entry):
             genome.seqs, np.array([0]), np.array([1])),
         "mcl": lambda: mcl.mcl_cluster(3, np.array([0]), np.array([1]),
                                        np.array([1.0])),
+        "per_site_lls": lambda: per_site_log_likelihoods(
+            [tree, tree], aln.mat, aln.taxa),
+        "compare_builders": lambda: compare_builders(aln.mat, aln.taxa,
+                                                     ["nj"]),
+        "tree_comparison_cli": lambda: tree_comparison.main(
+            [str(tree_file), str(tree_file), "-align", str(aln_file),
+             "-sitelh", str(tmp_path / "t.sitelh")]),
+        "au_test_cli": lambda: au_test.main(
+            ["-alignment", str(aln_file), "-trees", str(trees_file)]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
