@@ -1,7 +1,9 @@
 """Drive the port's paths once on one NVIDIA H100 and check them: stage
 1 with and without the HMM enhancer, stage 2, the tools (per-site
-log-likelihoods, the AU test and the six CLIs), and run_pepr, the
-reference's default run from genomes to its output files.
+log-likelihoods, the AU test and the six CLIs), the fan-out over ranks
+(the mesh, at one NCCL rank and at four Gloo ranks sharing the card),
+and run_pepr, the reference's default run from genomes to its output
+files.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -16,13 +18,14 @@ Phases, each printing one JSON line with the elapsed seconds:
            proteins (~1,300 WAG families, lengths lognormal around 306,
            3 families of 2,100-2,600 residues, 100 random proteins each)
   sw_kernel  the SW kernel against its plain PyTorch version on the card:
-           up to 256 real pairs of the stage-1 pair list from every
-           length bucket (BLOSUM62 11/1), the planted ties of
+           up to SW_CHECK_PAIRS real pairs of the stage-1 pair list from
+           every length bucket (BLOSUM62 11/1; the plain version once on
+           all of them, padded with PAD to the largest bucket, and
+           timed), the planted ties of
            planted_tie_pairs (two top cells either side of a strip or
            lane boundary of the kernel's walk, or in one row; query
            lengths 255-257 and 511-513) and one bucket of planted ACGT
-           pairs under blastn 5/2; all five outputs must be equal (the
-           plain version's time on each bucket's pairs is printed); the
+           pairs under blastn 5/2; all five outputs must be equal; the
            same pairs embedded in a bucket twice as long on each side
            (more trailing PAD) must give identical outputs; then one
            launch at the main path's batch size for the bucket with the
@@ -51,8 +54,10 @@ Phases, each printing one JSON line with the elapsed seconds:
   hmm_kernel  the HMM kernel against its plain PyTorch version on the
            stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a reference
            (lpad, mpad) bucket, Forward and Viterbi, within HMM_ATOL +
-           HMM_RTOL; the same batch permuted and with each pair twice
-           must give bit-identical scores; every launch of the card's
+           HMM_RTOL (the plain version once a profile pack, on all its
+           buckets' pairs at its largest lpad, and timed, plain_by_pack);
+           the same batch permuted and with each pair twice must give
+           bit-identical scores; every launch of the card's
            plan (one a pack), timed, beside its bound (per_launch), its
            scores identical to the reference buckets' launches'; each
            configuration of each pack (threads a pair) with its
@@ -165,6 +170,25 @@ Phases, each printing one JSON line with the elapsed seconds:
            columns, the launch counts reset and read around it, each
            method's LL within FINAL_LL_RTOL of the plain path's, then
            both kernels at its three trees against their plain versions
+  distributed  the mesh (distributed_phase): (a) one NCCL rank in this
+           process (initialize_distributed on a 127.0.0.1 coordinator,
+           one all_reduce): default_mesh() is (1, 1), sharded_loglik of
+           the generating tree over the 64,433 columns bit-identical to
+           loglik, sharded_replicate_blopt of DIST_REPS jackknife
+           replicates (the stage2 phase's masks, NJ start trees) for 60
+           steps bit-identical to replicate_blopt, both timed, and
+           support_trees_batched on a small input (DIST_SMALL) at one
+           rank; then the group is destroyed; (b) DIST_RANKS ranks that
+           share the card over Gloo on CUDA tensors, spawned (run_ranks,
+           dist_rank), mesh (2, 2): each rank's total within DIST_LL_RTOL
+           of (a)'s, its fit within DIST_BLEN_RTOL (lengths) and
+           DIST_RLL_RTOL (LLs) of (a)'s, every rank's arrays identical to
+           rank 0's; per rank its seconds, pruning launches and the
+           bytes it all-reduced (per Adam step and in all); (c) in the
+           same ranks, support_trees_batched on the small input through
+           the mesh: every rank's topologies those of (a)'s one rank; (d)
+           dryrun_multi(DIST_RANKS, backend="gloo") on the card, and
+           entry()'s total equal to loglik's
   pepr    run_pepr with PeprConfig.default_track() (ml full tree,
            PEPR_REPS replicates, refinement) on the pepr_genomes input,
            files written and a checkpoint store kept in a temporary
@@ -239,7 +263,12 @@ S1_RANDOM = 100
 # profile_stage1's ingroup genomes: all 11 until the stage2_options
 # phase came
 PROFILE_S1_INGROUP = 4
-SW_CHECK_PAIRS = 256  # pairs per bucket held against the plain version
+# pairs per bucket held against the plain version: 256 until the
+# distributed phase came
+SW_CHECK_PAIRS = 128
+# the same for the HMM kernel (hmm_kernel): 512 until the distributed
+# phase came
+HMM_CHECK_PAIRS = 256
 RECOVERY_FLOOR = 0.5  # a broken path recovers far fewer families
 
 N_TAXA = 53
@@ -312,7 +341,25 @@ CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
         f"tools neighbor_masher genomes {S1_INGROUP} -> {MASH_GENOMES} "
         "(the same)",
         f"tools compare_builders columns {N_COLUMNS} -> {TOOLS_COLUMNS} "
+        "(the same)",
+        f"sw_kernel plain check pairs a bucket 256 -> {SW_CHECK_PAIRS} (the "
+        "distributed phase)",
+        f"hmm_kernel plain check pairs a bucket 512 -> {HMM_CHECK_PAIRS} "
         "(the same)"]
+# distributed: the ranks that share the card in (b)-(d), the replicates
+# and Adam steps of the fits of (a) and (b) (STAGE2_REPS jackknife masks,
+# the support path's steps), the small support input of (c) (taxa,
+# families, replicates) and the tolerances against one rank: totals
+# (site slices summed in another order), and the fits' lengths and LLs
+# (those of tests/test_torch_support.py::test_replicate_blopt_matches_sharded)
+DIST_RANKS = 4
+DIST_REPS = STAGE2_REPS
+DIST_STEPS = 60
+DIST_SMALL = dict(taxa=12, families=8, reps=8)
+DIST_LL_RTOL = 1e-6
+DIST_BLEN_RTOL = 1e-3
+DIST_RLL_RTOL = 1e-5
+DIST_TIMEOUT = 300.0
 FINAL_LL_RTOL = 1e-5  # a path's final LL, kernel against the plain path
 # and against the float64 plain LL
 # largest transition probability allowed between a dead state (pi <=
@@ -338,7 +385,6 @@ HMM_MUFU_PER_CELL_PAIRWISE = 11
 SMS = 132
 MUFU_PER_SM_CLOCK = 16
 HMM_FLOATS_PER_COLUMN = 27  # a profile column: 20 emissions, 7 transitions
-HMM_CHECK_PAIRS = 512  # pairs per bucket held against the plain version
 # kernel against plain, bits: sums in another order (per-thread online
 # log-sum-exp2 against per-row sums, a thread-blocked delete chain
 # against the Kogge-Stone doubling) and the MUFU's approximate exp2 and
@@ -1187,14 +1233,13 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
             x, (0, min(2 * x.shape[1], sw.MAX_LEN) - x.shape[1]),
             value=24).contiguous() for x in (q, tt))
 
-    checked, n_embedded = [], 0
+    checked, n_embedded, samples = [], 0, []
     for (blq, blt), idx in buckets.items():
         take = idx[np.linspace(0, len(idx) - 1,
                                min(len(idx), SW_CHECK_PAIRS)).astype(int)]
         q, tt = gather(take, blq, blt)
         got = sw.sw_align(q, tt, sub)
-        want, plain_ms = timed(lambda: sw_align_batch(q, tt, sub))
-        compare(got, want, f"bucket ({blq}, {blt})")
+        samples.append((blq, blt, q, tt, got))
         # PAD tails: the same pairs in a larger bucket, all five outputs
         # identical
         qe, te = embedded(q, tt)
@@ -1203,7 +1248,23 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
                     f"bucket ({blq}, {blt}) embedded in {tuple(qe.shape[1:])}"
                     f" x {tuple(te.shape[1:])}")
             n_embedded += 1
-        checked.append([blq, blt, len(idx), len(take), plain_ms])
+        checked.append([blq, blt, len(idx), len(take)])
+    # the plain version once on every bucket's sample, each padded with
+    # PAD to the largest bucket (its outputs do not see PAD tails): its
+    # time follows its DP steps, not its pairs, so one call of the
+    # largest shape costs about what that bucket's own call did
+    wq = max(x[2].shape[1] for x in samples)
+    wt = max(x[3].shape[1] for x in samples)
+    q_all, t_all = (torch.cat([torch.nn.functional.pad(
+        x[i], (0, w - x[i].shape[1]), value=24) for x in samples])
+        for i, w in ((2, wq), (3, wt)))
+    want, sample_plain_ms = timed(lambda: sw_align_batch(q_all, t_all, sub))
+    off = 0
+    for blq, blt, q, _, got in samples:
+        compare(got, {k: v[off:off + len(q)] for k, v in want.items()},
+                f"bucket ({blq}, {blt})")
+        off += len(q)
+    del samples, q_all, t_all, want
     # planted ties at the walk's strip and lane boundaries, in their own
     # bucket and embedded in a larger one
     ties = planted_tie_pairs()
@@ -1257,8 +1318,9 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
     phase("sw_kernel", seconds=round(time.time() - t, 3),
           union_pairs=int(len(pairs_q)), pair_list_cells=list_cells,
           buckets_checked=dict(
-              columns=["blq", "blt", "pairs", "checked", "plain_ms"],
-              rows=checked),
+              columns=["blq", "blt", "pairs", "checked"], rows=checked,
+              plain_shape=[sum(r[3] for r in checked), wq, wt],
+              plain_ms=sample_plain_ms),
           embedded_buckets=n_embedded,
           planted_ties=dict(query_lengths=list(TIE_LENGTHS),
                             pairs=len(ties)),
@@ -1510,7 +1572,8 @@ def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
     """The HMM kernel against its plain version on the pairs of a
     stage1_hmm run (`call`: the recorded scorer inputs), bucket by
     reference bucket: up to HMM_CHECK_PAIRS real pairs, Forward and
-    Viterbi, within HMM_ATOL + HMM_RTOL |plain|; the same batch permuted,
+    Viterbi, within HMM_ATOL + HMM_RTOL |plain| (the plain version run
+    once a pack on all its buckets' pairs); the same batch permuted,
     and with each pair twice, bit-identical; every launch of the card's
     plan timed beside the bound, and its scores equal to the reference
     buckets' launches' (lpad enters only as the cap); every configuration
@@ -1542,20 +1605,16 @@ def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
         used[0] = max(used[0], float((d / tol).max()))
         return float(d.max())
 
-    checked, worst = [], 0.0
+    checked, worst, samples = [], 0.0, {}
     buckets = [b for _, q in sorted(p["packs"].items()) for b in q["buckets"]]
     for b in buckets:
         take = np.linspace(0, len(b.pairs) - 1, min(len(b.pairs),
                                                     HMM_CHECK_PAIRS)
                            ).astype(int)
         args, _, _ = hmm_launch(p, b, take, dev)
-        row = [b.lpad, b.mpad, len(b.pairs), len(take)]
+        kernel = {}
         for fwd in (True, False):
-            got = hmm_kernel.hmm_score(*args, fwd)
-            want, plain_ms = timed(lambda: plain(args, fwd))
-            err = check(got, want, f"({'Forward' if fwd else 'Viterbi'}) at "
-                        f"({b.lpad}, {b.mpad})")
-            worst = max(worst, err)
+            got = kernel[fwd] = hmm_kernel.hmm_score(*args, fwd)
             perm = torch.randperm(len(take), device=dev)
             p_args = args[:3] + (args[3][perm].contiguous(),
                                  args[4][perm].contiguous(), b.lpad)
@@ -1568,8 +1627,34 @@ def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
                 fail(f"the HMM kernel's scores at ({b.lpad}, {b.mpad}) "
                      "depend on the batch (permuted or duplicated pairs "
                      "differ)")
-            row += [err, round(plain_ms, 3)]
-        checked.append(row)
+        samples.setdefault(b.mpad, []).append((b, args, kernel))
+    # the plain version once a pack on all its buckets' samples, at the
+    # pack's largest lpad: a pair's score does not see positions past its
+    # sequence, and the plain loop's time follows the longest sequence of
+    # its batch, not the pairs
+    plain_rows = []
+    for mpad, items in sorted(samples.items()):
+        a0 = items[0][1]
+        m_args = a0[:3] + tuple(torch.cat([a[i] for _, a, _ in items])
+                                for i in (3, 4)) + (
+            max(b.lpad for b, _, _ in items),)
+        want, row = {}, [mpad, m_args[5], len(m_args[3])]
+        for fwd in (True, False):
+            want[fwd], plain_ms = timed(lambda: plain(m_args, fwd))
+            row.append(round(plain_ms, 3))
+        plain_rows.append(row)
+        off = 0
+        for b, a, kernel in items:
+            n, row = len(a[3]), [b.lpad, b.mpad, len(b.pairs), len(a[3])]
+            for fwd in (True, False):
+                err = check(kernel[fwd], want[fwd][off:off + n],
+                            f"({'Forward' if fwd else 'Viterbi'}) at "
+                            f"({b.lpad}, {b.mpad})")
+                worst = max(worst, err)
+                row.append(err)
+            checked.append(row)
+            off += n
+    del samples, want
     table, card_scores = hmm_launch_table(p, dev, sm_clock_mhz)
     # the same pairs launched by the reference's buckets: identical
     ref_scores = torch.empty_like(card_scores)
@@ -1620,8 +1705,9 @@ def hmm_kernel_phase(call, dev, sm_clock_mhz: float) -> dict:
     torch.cuda.empty_cache()
     return dict(entry=entry, checked=dict(
         columns=["lpad", "mpad", "pairs", "checked", "fwd_max_abs_err",
-                 "fwd_plain_ms", "vit_max_abs_err", "vit_plain_ms"],
-        rows=checked), per_launch=dict(
+                 "vit_max_abs_err"], rows=checked), plain_by_pack=dict(
+        columns=["mpad", "lpad", "pairs", "fwd_ms", "vit_ms"],
+        rows=plain_rows), per_launch=dict(
         columns=HMM_LAUNCH_COLUMNS, rows=table,
         ms=round(launches_ms, 4), bound_ms=round(launches_bound, 4),
         bound_share=round(launches_bound / launches_ms, 4)),
@@ -1717,7 +1803,8 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     out = hmm_kernel_phase(rec.calls[0], dev, sm_clock_mhz)
     entry = out["entry"]
     phase("hmm_kernel", seconds=round(time.time() - t, 3),
-          buckets_checked=out["checked"], per_launch=out["per_launch"],
+          buckets_checked=out["checked"],
+          plain_by_pack=out["plain_by_pack"], per_launch=out["per_launch"],
           variants=out["variants"], **entry)
     return dict(entry=entry, ingroup=ingroup, pool=pool, truth=truth,
                 small_in=s_in, small_pool=s_pool)
@@ -2659,6 +2746,253 @@ def tools_phase(cat, truth, full_tree, support_trees, s1: dict, seed: int,
                               "compare_builders": builders}}
 
 
+# what a spawned rank of the distributed phase imports
+RANK_IMPORTS = ("numpy", "torch", "torch._dynamo", "torch.distributed",
+                "torch.multiprocessing", "pepr_tpu_torch.entry",
+                "pepr_tpu_torch.models.support")
+
+
+def warm_rank_imports(build_dir: str):
+    """Start a child that compiles what a spawned rank imports into a
+    bytecode cache under `build_dir` (PYTHONPYCACHEPREFIX), while the
+    phases before the distributed one run.  On a host that writes no
+    bytecode (PYTHONDONTWRITEBYTECODE) each rank would otherwise compile
+    torch's sources again, and torch._dynamo's, which the first Adam
+    step imports.  The child prints the seconds its imports took.
+    Returns (the child, the cache directory)."""
+    prefix = os.path.join(build_dir, "pycache")
+    env = dict(os.environ, PYTHONPYCACHEPREFIX=prefix)
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import time; t = time.time(); import "
+         + ", ".join(RANK_IMPORTS) + "; print(time.time() - t)"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return child, prefix
+
+
+def small_support_input(seed: int):
+    """(c)'s input: DIST_SMALL's taxa and WAG+Gamma(0.5) families of
+    80-160 columns over a random tree, concatenated."""
+    import numpy as np
+    from pepr_tpu_torch.models.concat import concatenate
+    from pepr_tpu_torch.models.msa import Alignment
+    from pepr_tpu_torch.utils.simulate import random_tree, simulate_families
+    rng = np.random.default_rng(seed + 5)
+    taxa = [f"d{i:02d}" for i in range(DIST_SMALL["taxa"])]
+    fams = simulate_families(random_tree(taxa, rng),
+                             rng.integers(80, 160,
+                                          size=DIST_SMALL["families"]),
+                             rng, alpha=0.5)
+    return concatenate([Alignment(n, t, c) for n, t, c in fams], taxa)
+
+
+def dist_rank(codes, masks, children, rep_blen, model, full, small,
+              seed: int, device, t_spawn: float) -> dict:
+    """One spawned rank of (b) and (c): sharded_loglik of the full tree
+    (`full`: children, blen), sharded_replicate_blopt of the replicates,
+    then support_trees_batched on `small`, each timed, with the pruning
+    launches and the mesh's all-reduce tally of (b); `start` is the
+    seconds from `t_spawn` (the spawn) to the group's first work."""
+    start = time.time() - t_spawn
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pepr_tpu_torch.models.support import support_trees_batched
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.parallel import mesh as pm
+    from pepr_tpu_torch.tree import to_newick
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    mesh = pm.default_mesh()
+    pruning.reset_launch_counts()
+    pm.reset_collective_counts()
+    t = time.time()
+    total = pm.sharded_loglik(mesh, codes, np.ones(codes.shape[1],
+                                                   np.float32),
+                              *full, model, device=device)
+    loglik_s = time.time() - t
+    t = time.time()
+    blen, ll = pm.sharded_replicate_blopt(mesh, codes, masks, children,
+                                          rep_blen, model, steps=DIST_STEPS,
+                                          device=device)
+    sync()
+    fit_s = time.time() - t
+    launches = dict(pruning.LAUNCHES)
+    collectives = dict(pm.COLLECTIVES)
+    t = time.time()
+    trees = support_trees_batched(small, DIST_SMALL["reps"], seed,
+                                  device=device)
+    sync()
+    return dict(rank=dist.get_rank(), mesh=dict(mesh.shape),
+                coords=dict(mesh.coords), backend=mesh.backend,
+                total=total, blen=blen, ll=ll, launches=launches,
+                collectives=collectives,
+                # the gradient of one Adam step: the row's (R / rows, V)
+                # float32 lengths
+                step_bytes=-(-len(masks) // mesh.shape["rep"])
+                * rep_blen.shape[1] * 4,
+                seconds=dict(start=start, loglik=loglik_s, fit=fit_s,
+                             support=time.time() - t),
+                support=[to_newick(x) for x in trees])
+
+
+def dist_checks(one: dict, ranks: list[dict]) -> dict:
+    """(b) and (c) against (a): `one` holds (a)'s total, blen, ll and
+    support Newicks."""
+    import numpy as np
+    from pepr_tpu_torch.tree import parse_newick, rf_distance
+    first = ranks[0]
+    rel = [abs(r["total"] - one["total"]) / abs(one["total"])
+           for r in ranks]
+    if not max(rel) <= DIST_LL_RTOL:
+        fail(f"sharded_loglik over the ranks is {max(rel)} from one "
+             f"rank's total")
+    blen_rel = float(np.max(np.abs(first["blen"] - one["blen"])
+                            / np.abs(one["blen"])))
+    ll_rel = float(np.max(np.abs(first["ll"] - one["ll"])
+                          / np.abs(one["ll"])))
+    if not (blen_rel <= DIST_BLEN_RTOL and ll_rel <= DIST_RLL_RTOL):
+        fail(f"sharded_replicate_blopt over the ranks disagrees with one "
+             f"rank: lengths rel {blen_rel}, LLs rel {ll_rel}")
+    same = [r["total"] == first["total"]
+            and np.array_equal(r["blen"], first["blen"])
+            and np.array_equal(r["ll"], first["ll"])
+            and r["support"] == first["support"] for r in ranks]
+    if not all(same):
+        fail(f"the ranks returned different results: {same}")
+    rf = [rf_distance(parse_newick(a), parse_newick(b))
+          for a, b in zip(first["support"], one["support"])]
+    if len(rf) != len(one["support"]) or any(rf):
+        fail(f"support topologies over the ranks differ from one rank's: "
+             f"RF {rf}")
+    return dict(total_rel=rel, blen_rel=blen_rel, ll_rel=ll_rel,
+                identical_across_ranks=same, support_rf=rf)
+
+
+def distributed_phase(cat, truth, model, seed: int, dev, warm) -> None:
+    """The distributed phase (see the module docstring); prints its
+    line.  `warm`: warm_rank_imports' child and cache, which the spawned
+    ranks read."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from pepr_tpu_torch.entry import dryrun_multi, entry, free_port, run_ranks
+    from pepr_tpu_torch.models.support import (jackknife_gene_masks,
+                                               support_trees_batched)
+    from pepr_tpu_torch.models.treebuild import nj_start_tree
+    from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
+                                               tree_to_arrays)
+    from pepr_tpu_torch.parallel import mesh as pm
+    from pepr_tpu_torch.parallel.replicates import replicate_blopt
+    from pepr_tpu_torch.pipeline.stage2 import Stage2Config
+    from pepr_tpu_torch.tree import to_newick
+    t_phase = time.time()
+    masks = jackknife_gene_masks(cat, DIST_REPS, Stage2Config().seed)
+    arrs = [tree_to_arrays(nj_start_tree(cat.mat, cat.taxa, m, device=dev),
+                           cat.taxa) for m in masks]
+    ch = np.stack([a.children for a in arrs])
+    bl = np.stack([a.blen for a in arrs])
+    t_arr = tree_to_arrays(truth, cat.taxa)
+    full = (t_arr.children, t_arr.blen)
+    ones = np.ones(cat.length, np.float32)
+    small = small_support_input(seed)
+
+    def timed_sync(fn):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t
+
+    # (a) one NCCL rank in this process
+    pm.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                              device="cuda")
+    try:
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        mesh = pm.default_mesh()
+        if dist.get_backend() != "nccl" or float(probe[0]) != 1.0 \
+                or mesh.shape != {"rep": 1, "site": 1}:
+            fail(f"one NCCL rank: backend {dist.get_backend()}, mesh "
+                 f"{mesh.shape}, all_reduce {float(probe[0])}")
+        total = pm.sharded_loglik(mesh, cat.mat, ones, *full, model,
+                                  device=dev)
+        want = loglik(cat.mat, *full, model, device=dev)
+        (b1, ll1), fit_s = timed_sync(lambda: pm.sharded_replicate_blopt(
+            mesh, cat.mat, masks, ch, bl, model, steps=DIST_STEPS,
+            device=dev))
+        (b0, ll0), plain_s = timed_sync(lambda: replicate_blopt(
+            cat.mat, masks, ch, bl, model, steps=DIST_STEPS, device=dev))
+        support1, support_s = timed_sync(lambda: [
+            to_newick(x) for x in support_trees_batched(
+                small, DIST_SMALL["reps"], seed, device=dev)])
+    finally:
+        pm.shutdown_distributed()
+    a = dict(backend="nccl", mesh=mesh.shape, total=total,
+             loglik_identical=total == want,
+             fit_identical=bool(np.array_equal(b1, b0)
+                                and np.array_equal(ll1, ll0)),
+             seconds=dict(sharded_fit=fit_s, replicate_blopt=plain_s,
+                          small_support=support_s))
+    if not (a["loglik_identical"] and a["fit_identical"]):
+        fail(f"one NCCL rank is not the one-process path bit for bit: {a}")
+    # (b) and (c): the ranks share the card over Gloo, each starting from
+    # the bytecode cache
+    child, prefix = warm
+    out, err = child.communicate(timeout=DIST_TIMEOUT)
+    if child.returncode != 0:
+        fail(f"importing a rank's modules failed:\n{err[-2000:]}")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    t = time.time()
+    ranks = run_ranks(DIST_RANKS, dist_rank,
+                      (cat.mat, masks, ch, bl, model, full, small, seed,
+                       None, t), backend="gloo", timeout=DIST_TIMEOUT)
+    bc_s = time.time() - t
+    checks = dist_checks(dict(total=total, blen=b1, ll=ll1,
+                              support=support1), ranks)
+    for r in ranks:
+        if r["launches"]["pruning_fwd"] <= 0 \
+                or r["launches"]["pruning_bwd"] != DIST_STEPS:
+            fail(f"rank {r['rank']} made {r['launches']} pruning launches, "
+                 f"not {DIST_STEPS} gradients")
+    b = dict(ranks=DIST_RANKS, backend=ranks[0]["backend"],
+             tensors="cuda", mesh=ranks[0]["mesh"], seconds=bc_s,
+             # a rank's imports compiled from source, beside the ranks'
+             # start from the cache (per_rank's `start`)
+             uncached_imports_s=float(out.split()[-1]),
+             per_rank=[dict(rank=r["rank"], coords=r["coords"],
+                            seconds=r["seconds"], launches=r["launches"],
+                            all_reduce=r["collectives"],
+                            step_bytes=r["step_bytes"]) for r in ranks],
+             **{k: v for k, v in checks.items() if k != "support_rf"})
+    c = dict(taxa=len(small.taxa), families=small.n_genes,
+             columns=small.length, reps=DIST_SMALL["reps"],
+             support_rf=checks["support_rf"])
+    # (d) the dry run and entry() on the card
+    t = time.time()
+    dry = dryrun_multi(DIST_RANKS, backend="gloo")
+    dry_s = time.time() - t
+    os.environ.pop("PYTHONPYCACHEPREFIX")
+    fn, ex = entry()
+    with torch.no_grad():
+        e_total = float(fn(*ex))
+    e_want = loglik(ex[0].cpu().numpy(), ex[1].cpu().numpy(),
+                    ex[2].cpu().numpy(), WagModel.create(), device=dev)
+    d = dict(dryrun_seconds=dry_s, dryrun_mesh=dry[0]["mesh"],
+             dryrun_total=dry[0]["total"], entry_total=e_total,
+             entry_equals_loglik=e_total == e_want)
+    if not d["entry_equals_loglik"]:
+        fail(f"entry()'s total {e_total} is not loglik's {e_want}")
+    phase("distributed", seconds=round(time.time() - t_phase, 3),
+          config=dict(ranks=DIST_RANKS, reps=DIST_REPS, steps=DIST_STEPS,
+                      columns=cat.length, small=DIST_SMALL),
+          a=a, b=b, c=c, d=d)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2707,6 +3041,7 @@ def main(argv=None) -> int:
     if cap[0] != 9:
         fail(f"needs a Hopper card (capability 9.x), got {cap}")
     dev = resolve_device("cuda")
+    warm = warm_rank_imports(_cuda.BUILD_DIR)
 
     # -- build: every source, one nvcc each, side by side
     t = time.time()
@@ -3005,6 +3340,10 @@ def main(argv=None) -> int:
         t_checks = tools_phase(cat, truth, *s2_trees, s1, args.seed, dev,
                                tmp)
     del s1, s2_trees
+
+    # -- distributed: the mesh at one NCCL rank, four Gloo ranks sharing
+    # the card, supports through the mesh, the dry run and entry()
+    distributed_phase(cat, truth, model, args.seed, dev, warm)
 
     # -- pepr: the reference's default run, genomes to the output files,
     # with a checkpoint store; resume: that store re-run, and a small

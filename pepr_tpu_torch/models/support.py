@@ -5,13 +5,15 @@ Each of `reps` support trees is built from a random half of the gene
 families (PhylogenomicPipeline2.java:994-1126).  A replicate is a 0/1
 site-weight vector over the same concatenated alignment, so all
 replicates share the device data; their branch lengths are optimized
-together (`parallel.replicates.replicate_blopt`) and every NNI round
-scores each replicate's whole neighborhood in batched kernel calls.
-The masks come from seeded numpy generators, identical to the JAX
-package's.  `resample="bootstrap_sites"` draws multinomial column
-counts instead of gene halves (the classic bootstrap as a reweighting),
-and `method="nj"` builds each replicate's plain NJ tree on the serial
-path, as the JAX package does.
+together over the ranks of the mesh (`sharded_replicate_blopt` on
+`default_mesh()`: replicates over its `rep` rows, columns over its
+`site` ranks; one rank without a process group), and every NNI round
+scores each replicate's whole neighborhood in batched kernel calls, on
+every rank, as in the JAX package.  The masks come from seeded numpy
+generators, identical to the JAX package's.  `resample="bootstrap_sites"`
+draws multinomial column counts instead of gene halves (the classic
+bootstrap as a reweighting), and `method="nj"` builds each replicate's
+plain NJ tree on the serial path, as the JAX package does.
 
 With a checkpoint store the finished replicates are saved one by one
 (`support_{r:04d}`, Newick), and the batched path saves its phases:
@@ -23,7 +25,9 @@ block's first replicate), the state after each NNI round
 of the moved replicates (`support_moved_blopt_{rnd}`).  A replicate's
 fit depends on the replicates that share its block (the block's codes
 are compacted to the union of their live columns), so the blocks are a
-function of (reps, moved) alone and a block is saved only whole.
+function of (reps, moved) alone, never of the world size (a store
+written at 4 ranks resumes at 1 and the other way round), and a block
+is saved only whole.
 """
 
 from __future__ import annotations
@@ -42,8 +46,9 @@ from pepr_tpu_torch.ops.likelihood import (TreeArrays, WagModel,
                                            arrays_to_tree, model_tensors,
                                            tree_to_arrays)
 from pepr_tpu_torch.parallel import replicates
-from pepr_tpu_torch.parallel.replicates import (replicate_blopt,
-                                                replicate_codes)
+from pepr_tpu_torch.parallel.mesh import (default_mesh, rank0_value,
+                                          sharded_replicate_blopt)
+from pepr_tpu_torch.parallel.replicates import replicate_codes
 from pepr_tpu_torch.pipeline.checkpoint import Incomplete, check_deadline
 from pepr_tpu_torch.tree import decorate_supports, parse_newick, to_newick
 from pepr_tpu_torch.tree.basic import Tree
@@ -180,6 +185,7 @@ def support_trees_batched(cat: ConcatenatedAlignment, reps: int,
     check_deadline(deadline, "support starts")
 
     block = replicates.BLOCK_REPS
+    mesh = default_mesh()
     state = load("support_batch_state", None)
     if state is not None:
         children, blens, lls, round_done = state
@@ -197,10 +203,11 @@ def support_trees_batched(cat: ConcatenatedAlignment, reps: int,
                 raise Incomplete("support BL-opt (block won't fit)")
             t0 = time.time()
             sl = slice(b0, b0 + block)
-            bstate[b0] = replicate_blopt(cat.mat, masks[sl], children[sl],
-                                         blens0[sl], model, steps=bl_steps,
-                                         device=dev)
-            last_block = time.time() - t0
+            bstate[b0] = sharded_replicate_blopt(
+                mesh, cat.mat, masks[sl], children[sl], blens0[sl], model,
+                steps=bl_steps, device=dev)
+            # rank 0's clock, so that every rank takes the budget's turn
+            last_block = rank0_value(time.time() - t0)
             save("support_blopt_blocks", bstate)
             log.info("support: BL-opt block %d-%d/%d done", b0,
                      b0 + len(bstate[b0][1]) - 1, reps)
@@ -272,9 +279,9 @@ def support_trees_batched(cat: ConcatenatedAlignment, reps: int,
             if m0 not in mstate:
                 if deadline is not None and deadline.near(60.0):
                     raise Incomplete(f"support moved-BL-opt round {rnd}")
-                mstate[m0] = replicate_blopt(
-                    cat.mat, masks[sel], children[sel], blens[sel], model,
-                    steps=max(bl_steps // 2, 20), device=dev)
+                mstate[m0] = sharded_replicate_blopt(
+                    mesh, cat.mat, masks[sel], children[sel], blens[sel],
+                    model, steps=max(bl_steps // 2, 20), device=dev)
                 save(mv_key, mstate)
             blens[sel], lls[sel] = mstate[m0]
         save("support_batch_state", (children, blens, lls, rnd + 1))

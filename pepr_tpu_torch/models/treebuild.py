@@ -107,11 +107,13 @@ def _inv_softplus(y):
 
 def adam_blopt(codes: torch.Tensor, children: torch.Tensor,
                theta0: torch.Tensor, margs, weights: torch.Tensor,
-               steps: int):
+               steps: int, reduce_grad=None):
     """`steps` Adam steps on the (summed) negative weighted LL of one
     tree (theta (V,)) or a batch (theta (B, V), each tree with its own
-    children and weights).  Returns (theta, nll of the last step, taken
-    before its update) — the value `optax` scans report."""
+    children and weights).  `reduce_grad(grad)`, if given, sums the
+    gradient in place over the ranks that hold the other columns before
+    each update.  Returns (theta, nll of the last step, taken before its
+    update) — the value `optax` scans report."""
     theta = theta0.detach().clone().requires_grad_(True)
     opt = torch.optim.Adam([theta], lr=ADAM_LR, betas=ADAM_BETAS,
                            eps=ADAM_EPS)
@@ -121,6 +123,8 @@ def adam_blopt(codes: torch.Tensor, children: torch.Tensor,
         nll = -loglik_weighted(codes, children, _softplus(theta), *margs,
                                weights)
         nll.sum().backward()
+        if reduce_grad is not None:
+            reduce_grad(theta.grad)
         opt.step()
     return theta.detach(), (None if nll is None else nll.detach())
 

@@ -5,6 +5,11 @@ library `_build/libpepr_<name>.so`, with a plain C interface loaded by
 `ctypes` (no PyTorch headers, so a build takes seconds).  A library is
 rebuilt when its source's hash differs from the one stored beside it.
 `build()` starts one `nvcc` per source, all at once, and waits for them.
+The library and its stamp are each written to a temporary file and
+renamed into place, so a process never loads a half-written library or
+reads a half-written stamp.  Over several ranks the node's local rank 0
+builds while the others wait at a barrier
+(`parallel.mesh.initialize_distributed`).
 """
 
 from __future__ import annotations
@@ -94,8 +99,9 @@ def build(names=SOURCES, force: bool = False) -> dict[str, str]:
             failed.append(n)
             continue
         os.replace(tmp, lib_path(n))
-        with open(lib_path(n) + ".sha256", "w") as fh:
+        with open(tmp + ".sha256", "w") as fh:
             fh.write(todo[n] + "\n")
+        os.replace(tmp + ".sha256", lib_path(n) + ".sha256")
     if failed:
         raise RuntimeError("nvcc failed to build "
                            + ", ".join(f"csrc/{n}.cu" for n in failed) + ":\n"

@@ -20,16 +20,28 @@ resumes from the checkpoint directory).  The port adds -device
 cpu|cuda (default: the card); a store written on one resumes on the
 other.
 
+Over several GPUs, one rank a card: with PEPR_COORDINATOR set
+(`host:port` with PEPR_NUM_PROCS and PEPR_PROC_ID, or `auto` under
+`torchrun`) every rank runs the pipeline, the support replicates spread
+over the ranks (`parallel.mesh`), and rank 0 alone prints the tree and
+writes the files, the log file and the checkpoint store.
+
 Usage:
   python -m pepr_tpu_torch.pipeline.cli -run_name X \
       -genome_file in/*.faa -outgroup og/*.faa -outgroup_count 2 \
       [-device cpu] [-checkpoint DIR [-time_budget S]]
+  PEPR_COORDINATOR=auto torchrun --nproc-per-node 4 \
+      -m pepr_tpu_torch.pipeline.cli -run_name X ...
 """
 
 from __future__ import annotations
 
 import sys
 
+import torch.distributed as dist
+
+from pepr_tpu_torch.parallel.mesh import (initialize_distributed,
+                                          is_writer, shutdown_distributed)
 from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
 from pepr_tpu_torch.utils.cli import (RunProperties, expand_paths,
                                       setup_logfile)
@@ -125,17 +137,25 @@ def main(argv: list[str] | None = None) -> int:
         print(__doc__)
         return 0
     rp = RunProperties(argv)
-    logfile = rp.get("logfile")
-    if logfile:
-        setup_logfile(logfile)
     cfg = config_from_args(argv)
     if not cfg.genome_files:
         print("error: -genome_file is required", file=sys.stderr)
         return 2
-    result = run_pepr(cfg, device=rp.get("device"))
-    print(result.newick)
-    for suffix, path in result.output_paths.items():
-        print(f"wrote {path}", file=sys.stderr)
+    # the process group this call makes, it also ends
+    joined = not dist.is_initialized() and \
+        initialize_distributed(device=rp.get("device"))
+    try:
+        logfile = rp.get("logfile")
+        if logfile and is_writer():
+            setup_logfile(logfile)
+        result = run_pepr(cfg, device=rp.get("device"))
+        if is_writer():
+            print(result.newick)
+            for suffix, path in result.output_paths.items():
+                print(f"wrote {path}", file=sys.stderr)
+    finally:
+        if joined:
+            shutdown_distributed()
     return 0
 
 

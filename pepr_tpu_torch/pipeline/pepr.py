@@ -15,7 +15,10 @@ its own store `sub{round}` under it, and a second run of the same
 configuration picks up where the first stopped.  `time_budget` is a
 soft budget in seconds: the stages poll it and raise `Incomplete`,
 naming the stage, with the store left resumable; a sub-run gets what
-remains of it.  The store's fingerprint covers what the JAX package's
+remains of it.  Over several ranks (`parallel.mesh`) every rank runs the
+whole pipeline, the support replicates spread over the mesh, and only
+rank 0 writes the store and the output files while the others wait at
+a barrier.  The store's fingerprint covers what the JAX package's
 covers plus the alphabet, which that package leaves out (its
 `Stage1Config`/`Stage2Config` reprs omit it), so a nucleotide run never
 resumes a protein store.
@@ -29,6 +32,7 @@ from dataclasses import dataclass, field, replace
 
 from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.io.fasta import SequenceSet, read_fasta
+from pepr_tpu_torch.parallel.mesh import barrier, is_writer
 from pepr_tpu_torch.pipeline.checkpoint import (CheckpointStore, Deadline,
                                                 config_fingerprint)
 from pepr_tpu_torch.pipeline.refine import refine_tree
@@ -241,9 +245,11 @@ def run_pepr(cfg: PeprConfig,
                "-outgroup", *cfg.outgroup_files,
                "-outgroup_count", str(cfg.outgroup_count),
                "-refine", str(cfg.refine).lower()]
-        result.output_paths = write_outputs(
-            cfg.out_dir, cfg.run_name, tracker, rooted,
-            support_trees=s2.support_trees,
-            hs_text=s2.concat.hs_matrix_text(), clp_args=clp)
+        if is_writer():
+            result.output_paths = write_outputs(
+                cfg.out_dir, cfg.run_name, tracker, rooted,
+                support_trees=s2.support_trees,
+                hs_text=s2.concat.hs_matrix_text(), clp_args=clp)
+        barrier()
         timings["write"] = time.time() - t0
     return result

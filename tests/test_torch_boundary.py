@@ -41,8 +41,9 @@ def test_port_imports_without_jax_or_pepr_tpu():
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr
     # 63 modules since the tools (models/treecompare, au_test,
-    # neighbor_masher, io/alignio, setextract, utils/stats, tools/*)
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 63
+    # neighbor_masher, io/alignio, setextract, utils/stats, tools/*), 65
+    # since the mesh (parallel/mesh, entry)
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 65
 
 
 def test_port_sources_never_name_jax_modules():
@@ -89,15 +90,18 @@ def test_device_default_raises_without_card(no_cuda):
                                    "stage1", "homology_search",
                                    "candidate_pairs", "sw_pairs", "mcl",
                                    "per_site_lls", "compare_builders",
-                                   "tree_comparison_cli", "au_test_cli"])
+                                   "tree_comparison_cli", "au_test_cli",
+                                   "sharded_loglik", "sharded_replicates",
+                                   "entry", "dryrun_multi"])
 def test_entry_points_raise_not_fall_back(no_cuda, entry, tmp_path):
     from pepr_tpu_torch.io.alignio import write_fasta_alignment
     from pepr_tpu_torch.io.fasta import SequenceSet
     from pepr_tpu_torch.models import homology, support, treebuild
     from pepr_tpu_torch.models.concat import concatenate
     from pepr_tpu_torch.models.treecompare import per_site_log_likelihoods
+    from pepr_tpu_torch import entry as tentry
     from pepr_tpu_torch.ops import kmer_filter, likelihood, mcl
-    from pepr_tpu_torch.parallel import replicates
+    from pepr_tpu_torch.parallel import mesh, replicates
     from pepr_tpu_torch.pipeline import stage1, stage2
     from pepr_tpu_torch.tools import au_test, tree_comparison
     from pepr_tpu_torch.tools.treebuilder_compare import compare_builders
@@ -142,6 +146,14 @@ def test_entry_points_raise_not_fall_back(no_cuda, entry, tmp_path):
              "-sitelh", str(tmp_path / "t.sitelh")]),
         "au_test_cli": lambda: au_test.main(
             ["-alignment", str(aln_file), "-trees", str(trees_file)]),
+        "sharded_loglik": lambda: mesh.sharded_loglik(
+            mesh.default_mesh(), aln.mat, np.ones(40, np.float32),
+            arr.children, arr.blen, model),
+        "sharded_replicates": lambda: mesh.sharded_replicate_blopt(
+            mesh.default_mesh(), aln.mat, np.ones((1, 40), np.float32),
+            arr.children[None], arr.blen[None], model),
+        "entry": lambda: tentry.entry(),
+        "dryrun_multi": lambda: tentry.dryrun_multi(2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
