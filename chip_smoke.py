@@ -2,8 +2,9 @@
 1 with and without the HMM enhancer, stage 2, the tools (per-site
 log-likelihoods, the AU test and the six CLIs), the fan-out over ranks
 (the mesh, at one NCCL rank and at four Gloo ranks sharing the card),
-and run_pepr, the reference's default run from genomes to its output
-files.
+the reference's own Aquificales and Erysipelotrichi families through
+stage 2 against the JAX run's results, and run_pepr, the reference's
+default run from genomes to its output files.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,7 +13,9 @@ Phases, each printing one JSON line with the elapsed seconds:
            required), torch and nvcc versions
   build    nvcc builds every pepr_tpu_torch/csrc/*.cu for sm_90a, one
            process per source side by side, into the git-ignored
-           pepr_tpu_torch/_build/; ptxas registers and spills per kernel
+           pepr_tpu_torch/_build/; ptxas registers and spills per kernel;
+           then g++ builds the native host library
+           (pepr_tpu_torch/native/fastio.cpp) there, its seconds printed
   data_stage1   seeded genomes at the shape of the Aquificales example:
            11 ingroup genomes and 1 outgroup-pool genome of ~1,140
            proteins (~1,300 WAG families, lengths lognormal around 306,
@@ -37,7 +40,12 @@ Phases, each printing one JSON line with the elapsed seconds:
   stage1   run_stage1 (use_hmm=False, outgroup_count=2) at full size;
            the SW launch count is reset just before and read just after;
            the pool genome must be selected and at least half of the
-           families in >= 2 ingroup genomes recovered as clean groups
+           families in >= 2 ingroup genomes recovered as clean groups;
+           the native library's k-mer profiles of the run's universe and
+           components of its hit graph, recorded during the run, against
+           their plain versions (profiles equal or at most one float32
+           ulp apart, with the rows that differ counted; components
+           identical)
   profile_stage1  torch.profiler's device time by kernel over a second
            stage-1 run on the first PROFILE_S1_INGROUP ingroup genomes
            and the pool, so the stage1 time carries no profiler
@@ -137,6 +145,26 @@ Phases, each printing one JSON line with the elapsed seconds:
            cotangent), and both kernels at A's full tree under a model
            matrix evaluation did not choose (BLOSUM62F, or WAGF if
            BLOSUM62F won)
+  real_data  the reference's own example runs (real_data_phase), read
+           from realdata/ (tests/torch_realdata_export.py's export of the
+           JAX run's stores: aqu, 673 Aquificales families of 12 taxa,
+           185,239 columns; ery, 528 Erysipelotrichi families, 154,086),
+           each through run_stage2_aligned at full width under the JAX
+           run's stage-2 configuration (ml, seed 12345), with
+           REAL_RUNS' replicates (aqu one block of 64, ery none), the
+           pruning launch counts reset just before and read just after;
+           then real_data_compare against the JAX run: the Gamma shapes
+           (within REAL_ALPHA_ATOL), the RF of the full trees over all
+           splits and over the JAX splits at least REAL_SPLIT_MIN long,
+           the RF to FastTree's tree, the port's LL beside the JAX tree's
+           under the port's likelihood (at its own lengths and refitted),
+           the first replicates against the JAX run's topology by
+           topology and the supports both sets give the JAX tree's
+           splits (the port's tree must keep every long JAX split or
+           score at least as high, its LL be within REAL_LL_RTOL of the
+           JAX run's, and the replicates be the JAX run's topologies
+           with its supports); then path_checks (the full tree, and
+           aqu's first replicate block)
   tools    the tools on the data phase's 53 taxa (tools_phase): (a)
            per_site_log_likelihoods of 8 trees (the generating tree,
            the stage2 full tree, the NJ tree, TOOLS_NNI NNI neighbours
@@ -232,6 +260,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import os
@@ -326,6 +355,26 @@ TOOLS_METHODS = ("fast_ml", "nj", "parsimony_bl")
 TOOLS_NNI = 4
 AU_LEVEL = 0.05
 SITELH_TOL = 1e-6
+# real_data: the reference's example runs exported to realdata/
+# (tests/torch_realdata_export.py: aqu, 12 Aquificales taxa x 185,239
+# columns; ery, 12 Erysipelotrichi taxa x 154,086), each through
+# run_stage2_aligned at full width under the JAX run's stage-2
+# configuration; the jackknife replicates each run makes (the JAX run
+# made 100: aqu one block, ery none, for time); the shortest JAX branch
+# whose split the port's tree must keep unless it scores at least as
+# high under the port's likelihood (aqu's Hydrogenobaculum splits are
+# 6e-8 to 3e-5 long); how far the Gamma shape may be from the JAX run's,
+# and the port's LL from the JAX run's, relative (its products were
+# bf16x3 on another device).  Two H100 runs read both shapes equal to
+# the digit and LLs 2.2e-6 (aqu) and 1.6e-6 (ery) below the JAX run's;
+# the replicates must be the JAX run's topologies with its supports
+# (both runs: 64 of 64, support difference 0)
+REALDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "realdata")
+REAL_RUNS = (("aqu", 64), ("ery", 0))
+REAL_SPLIT_MIN = 1e-4
+REAL_ALPHA_ATOL = 1e-4
+REAL_LL_RTOL = 1e-5
 # every depth cut made for the 600 s budget, printed in the stage2_start
 # line (PERF.md §4 has the seconds each saved)
 CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
@@ -345,7 +394,9 @@ CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
         f"sw_kernel plain check pairs a bucket 256 -> {SW_CHECK_PAIRS} (the "
         "distributed phase)",
         f"hmm_kernel plain check pairs a bucket 512 -> {HMM_CHECK_PAIRS} "
-        "(the same)"]
+        "(the same)",
+        f"real_data support_reps {SUPPORT_REPS} -> {dict(REAL_RUNS)['aqu']} "
+        f"(aqu) and -> {dict(REAL_RUNS)['ery']} (ery) (the real_data phase)"]
 # distributed: the ranks that share the card in (b)-(d), the replicates
 # and Adam steps of the fits of (a) and (b) (STAGE2_REPS jackknife masks,
 # the support path's steps), the small support input of (c) (taxa,
@@ -1003,9 +1054,10 @@ def path_checks(res, reps: int, seed: int, dev, model=None) -> dict:
     """The kernels at the shapes a run_stage2 run gave them, each against
     its plain version (check_kernels): the run's full tree over its
     trimmed concatenation, and the first block of its jackknife
-    replicates (its own support trees) on their compacted codes, under
-    the run's model (`model`, default WAG+Gamma at the run's shape); the
-    full tree's LL by the kernel against the plain path, and both against
+    replicates (its own support trees; none when `reps` is 0) on their
+    compacted codes, under the run's model (`model`, default WAG+Gamma
+    at the run's shape); the full tree's LL by the kernel against the
+    plain path, and both against
     a float64 plain LL (the kernel's within FINAL_LL_RTOL of each).  For
     a model with dead states (nucleotide GTR: pi = 1e-10 outside ACGT)
     the largest transition probability between a dead and a live state
@@ -1059,10 +1111,12 @@ def path_checks(res, reps: int, seed: int, dev, model=None) -> dict:
         **check_kernels(codes, ch, pm, pi,
                         torch.ones((1, cat.length), device=dev), wide=True))}
     del codes, ch, pm
-    block = replicate_block(cat, res.support_trees,
-                            jackknife_gene_masks(cat, reps, seed), model, dev)
-    shapes["replicate_block"] = block_check(*block, pi, cat.length)
-    del block
+    if reps:
+        block = replicate_block(cat, res.support_trees,
+                                jackknife_gene_masks(cat, reps, seed), model,
+                                dev)
+        shapes["replicate_block"] = block_check(*block, pi, cat.length)
+        del block
     torch.cuda.empty_cache()
     return dict(out, kernel_shapes=shapes)
 
@@ -1169,6 +1223,75 @@ def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
                 rows=rows, launches=sum(r[3] for r in rows),
                 ms=round(tot_ms, 3), bound_ms=round(tot_bound, 3),
                 bound_share=round(tot_bound / tot_ms, 4))
+
+
+@contextlib.contextmanager
+def native_inputs():
+    """While open, record every call of the native host library on stage
+    1's path, with its output: the universe's k-mer profiles
+    (`models/homology.kmer_profiles`) and the hit graph's components
+    (`ops/mcl.connected_components`).  Yields {name: [(args, kwargs,
+    output)]}."""
+    from pepr_tpu_torch.models import homology
+    from pepr_tpu_torch.ops import mcl
+    seen = {"kmer_profiles": [], "connected_components": []}
+    saved = [(m, n, getattr(m, n)) for m, n in
+             ((homology, "kmer_profiles"), (mcl, "connected_components"))]
+
+    def recorder(name, orig):
+        def rec(*a, **kw):
+            out = orig(*a, **kw)
+            seen[name].append((a, kw, out))
+            return out
+        return rec
+
+    for mod, name, orig in saved:
+        setattr(mod, name, recorder(name, orig))
+    try:
+        yield seen
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def native_checks(seen: dict) -> dict:
+    """The native library's outputs recorded by native_inputs against
+    the plain versions on the same inputs: k-mer profiles row by row
+    (equal, or at most one float32 ulp apart: the plain version's norm
+    is float32, divided), components identical.  Fails otherwise or if
+    either was not called."""
+    import numpy as np
+    from pepr_tpu_torch import native
+    from pepr_tpu_torch.ops.kmer_filter import kmer_profiles_reference
+    from pepr_tpu_torch.ops.mcl import connected_components_reference
+    if not seen["kmer_profiles"] or not seen["connected_components"]:
+        fail("stage 1 did not call the native library: "
+             f"{ {k: len(v) for k, v in seen.items()} }")
+    prof = []
+    for a, kw, got in seen["kmer_profiles"]:
+        t = time.time()
+        ref = kmer_profiles_reference(*a, **kw)
+        ulp = np.spacing(np.maximum(np.abs(got), np.abs(ref)))
+        ulps = float((np.abs(got - ref) / ulp).max()) if got.size else 0.0
+        prof.append(dict(rows=int(got.shape[0]), dim=int(got.shape[1]),
+                         rows_differ=int((got != ref).any(axis=1).sum()),
+                         max_ulps=ulps, plain_s=round(time.time() - t, 3)))
+        if not ulps <= 1.0:
+            fail(f"native k-mer profiles disagree with the plain version "
+                 f"by more than one ulp: {prof[-1]}")
+    comps = []
+    for a, kw, got in seen["connected_components"]:
+        t = time.time()
+        same = bool(np.array_equal(got, connected_components_reference(
+            *a, **kw)))
+        comps.append(dict(nodes=int(a[0]), edges=int(len(a[1])),
+                          components=int(len(np.unique(got))),
+                          identical=same, plain_s=round(time.time() - t, 3)))
+        if not same:
+            fail(f"native components differ from the plain version: "
+                 f"{comps[-1]}")
+    return dict(library=native.lib_path(), kmer_profiles=prof,
+                connected_components=comps)
 
 
 def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
@@ -1346,15 +1469,19 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
     if not same or on_gpu.selected_outgroups != on_cpu.selected_outgroups:
         fail("small stage-1 run on the card disagrees with the CPU's")
 
-    # -- stage1 at full size
+    # -- stage1 at full size; the native library's calls on the run's
+    # universe and hit graph are recorded (native_inputs) and held
+    # against their plain versions after it
     cfg = Stage1Config(use_hmm=False, outgroup_count=2)
     torch.cuda.synchronize()
     sw.reset_launch_counts()
-    t = time.time()
-    res = run_stage1(ingroup, pool, cfg, device="cuda")
-    torch.cuda.synchronize()
-    wall = time.time() - t
+    with native_inputs() as seen:
+        t = time.time()
+        res = run_stage1(ingroup, pool, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t
     launches = sw.LAUNCHES["sw"]
+    native_res = native_checks(seen)
     sizes = np.array([len(x) for x in res.hg_sets])
     rec, elig = family_recovery(res.hg_sets, ingroup)
     phase("stage1", seconds=round(wall, 3),
@@ -1365,7 +1492,7 @@ def stage1_phases(seed: int, dev, sm_clock_mhz: float) -> tuple:
               int(sizes.max())] if len(sizes) else [],
           selected_outgroups=res.selected_outgroups, sw_launches=launches,
           families_recovered=rec, families_eligible=elig,
-          recovered_share=rec / max(elig, 1))
+          recovered_share=rec / max(elig, 1), native=native_res)
     if launches <= 0:
         fail("the SW kernel was not launched on the stage-1 path")
     if pool[0].taxon not in res.selected_outgroups:
@@ -2993,6 +3120,211 @@ def distributed_phase(cat, truth, model, seed: int, dev, warm) -> None:
           a=a, b=b, c=c, d=d)
 
 
+# -- real_data: the reference's example runs through stage 2
+
+def load_realdata(run: str, root: str = REALDATA) -> tuple:
+    """The exported families of a reference run as the port's
+    Alignments, and the JAX run's results (its .json)."""
+    import numpy as np
+    from pepr_tpu_torch.models.msa import Alignment
+    with np.load(os.path.join(root, f"{run}.npz")) as d:
+        a = {k: d[k] for k in d.files}
+    with open(os.path.join(root, f"{run}.json")) as fh:
+        meta = json.load(fh)
+    ro, off = a["row_offsets"], a["offsets"]
+    alns = []
+    for f, name in enumerate(a["names"]):
+        r0, r1 = int(ro[f]), int(ro[f + 1])
+        alns.append(Alignment(
+            str(name), [str(t) for t in a["taxa"][r0:r1]],
+            a["codes"][off[f]:off[f + 1]].reshape(r1 - r0,
+                                                  int(a["widths"][f])),
+            titles=[str(t) for t in a["titles"][r0:r1]]))
+    return alns, meta
+
+
+def real_config(meta: dict, reps: int, **kw):
+    """The JAX run's stage-2 configuration with `reps` replicates and
+    the fields of `kw`."""
+    from pepr_tpu_torch.pipeline.stage2 import Stage2Config
+    fields = dict(meta["stage2"], support_reps=reps)
+    fields.update(kw)
+    return Stage2Config(**fields)
+
+
+def split_agreement(tree, ref, min_len: float) -> dict:
+    """`tree`'s splits against `ref`'s: the RF over all splits, and
+    `rf_long`: the splits of `ref` at least `min_len` long that `tree`
+    lacks plus the splits of `tree` incompatible with one of them (0:
+    `tree` refines `ref` with its shorter branches collapsed)."""
+    from pepr_tpu_torch.tree.basic import unroot
+    from pepr_tpu_torch.tree.bipartition import (bipartitions, canonical,
+                                                 compatible, node_leafsets,
+                                                 taxon_index)
+    taxa = sorted(ref.leaf_labels())
+    index = taxon_index(taxa)
+    full = (1 << len(taxa)) - 1
+    u = unroot(ref)
+    masks = node_leafsets(u, index)
+    lengths = {}
+    for node in range(u.n_nodes):
+        size = bin(masks[node]).count("1")
+        if node != u.root and 1 < size < len(taxa) - 1:
+            lengths[canonical(masks[node], full)] = float(u.blen[node])
+    have = bipartitions(tree, index)
+    long = {b for b, v in lengths.items() if v >= min_len}
+    clash = {b for b in have if any(not compatible(b, j, full)
+                                    for j in long)}
+    return dict(rf=len(have ^ set(lengths)),
+                rf_long=len(long - have) + len(clash), splits=len(lengths),
+                long_splits=len(long), min_len=min_len,
+                short_lengths=sorted(v for v in lengths.values()
+                                     if v < min_len))
+
+
+def real_data_compare(res, meta: dict, reps: int, dev,
+                      refit_steps: int | None = None,
+                      ll_rtol: float | None = REAL_LL_RTOL) -> dict:
+    """A run_stage2_aligned result on a reference run's families against
+    the JAX run (`meta`): the Gamma shapes; the full trees' splits
+    (split_agreement) and the RF to FastTree's tree; the port's tree and
+    the JAX tree under the port's likelihood at the port's Gamma shape
+    (the JAX tree at its own lengths and refitted by the port's Adam
+    for `refit_steps`, default the run's bl_steps; `ll_rtol` None for a
+    run whose full-tree method is not the JAX run's); the first `reps`
+    replicates against the JAX run's, topology by topology, and the
+    supports both sets give the JAX tree's splits.  Fails if the port's
+    tree neither keeps every long split nor scores at least as high, if
+    the Gamma shape is more than REAL_ALPHA_ATOL away or the LL more
+    than REAL_LL_RTOL, or if a replicate's topology or a support differs
+    from the JAX run's."""
+    import numpy as np
+    from pepr_tpu_torch.models.treebuild import optimize_branch_lengths
+    from pepr_tpu_torch.ops.likelihood import (WagModel, loglik,
+                                               tree_to_arrays)
+    from pepr_tpu_torch.tree import parse_newick, rf_distance
+    from pepr_tpu_torch.tree.bipartition import (bipartition_counts,
+                                                 bipartitions, taxon_index)
+    cat = res.concat
+    jax_tree = parse_newick(meta["full_tree"]["newick"])
+    fasttree = parse_newick(meta["oracle"]["fasttree_newick"])
+    model = WagModel.create(alpha=res.gamma_alpha)
+
+    def ll(tree, blen=None):
+        arr = tree_to_arrays(tree, cat.taxa)
+        return loglik(cat.mat, arr.children,
+                      arr.blen if blen is None else blen, model, device=dev)
+
+    jarr = tree_to_arrays(jax_tree, cat.taxa)
+    if refit_steps is None:
+        refit_steps = meta["stage2"]["bl_steps"]
+    blen, _ = optimize_branch_lengths(cat.mat, jarr, model,
+                                      steps=refit_steps, device=dev)
+    lls = dict(port=ll(res.full_tree), port_search=res.log_likelihood,
+               jax_tree_jax_lengths=ll(jax_tree),
+               jax_tree_refit=ll(jax_tree, blen), refit_steps=refit_steps,
+               jax_run=meta["full_tree"]["log_likelihood"])
+    lls["port_minus_jax_refit"] = lls["port"] - lls["jax_tree_refit"]
+    splits = split_agreement(res.full_tree, jax_tree, REAL_SPLIT_MIN)
+    out = dict(
+        families=len(res.alignments), taxa=len(cat.taxa),
+        columns=cat.length,
+        gamma_alpha=dict(port=res.gamma_alpha, jax=meta["gamma_alpha"],
+                         diff=res.gamma_alpha - meta["gamma_alpha"]),
+        full_tree=dict(splits, rf_to_fasttree=rf_distance(res.full_tree,
+                                                          fasttree),
+                       jax_rf_to_fasttree=rf_distance(jax_tree, fasttree)),
+        log_likelihood=lls,
+        raxml=dict(jax_tree=meta["oracle"]["raxml_ll_ours"],
+                   fasttree=meta["oracle"]["raxml_ll_fasttree"]))
+    if reps:
+        jreps = [parse_newick(x) for x in meta["support_trees"][:reps]]
+        prf = [rf_distance(a, b) for a, b in zip(res.support_trees, jreps)]
+        index = taxon_index(sorted(cat.taxa))
+        pc = bipartition_counts(res.support_trees[:reps], index)
+        jc = bipartition_counts(jreps, index)
+        jall = bipartition_counts([parse_newick(x)
+                                   for x in meta["support_trees"]], index)
+        sup = [[pc.get(b, 0), jc.get(b, 0), jall.get(b, 0)]
+               for b in sorted(bipartitions(jax_tree, index))]
+        out["replicates"] = dict(
+            n=reps, jax_n=len(meta["support_trees"]),
+            identical_topologies=sum(d == 0 for d in prf),
+            rf_histogram={str(k): prf.count(k) for k in sorted(set(prf))},
+            supports_on_jax_splits=dict(
+                columns=["port_n", "jax_n", "jax_all"], rows=sup),
+            max_support_diff=max(abs(a - b) for a, b, _ in sup))
+    if not np.isfinite(lls["port"]) or sorted(
+            res.full_tree.leaf_labels()) != sorted(cat.taxa):
+        fail(f"real data {meta['run']}: the full tree's LL is not finite or "
+             "its leaves are not the taxa")
+    if splits["rf_long"] and lls["port"] < lls["jax_tree_refit"]:
+        fail(f"real data {meta['run']}: the port's tree loses a JAX split "
+             f"of >= {REAL_SPLIT_MIN} and scores below the JAX tree: "
+             f"{splits}, {lls}")
+    if not abs(res.gamma_alpha - meta["gamma_alpha"]) <= REAL_ALPHA_ATOL:
+        fail(f"real data {meta['run']}: Gamma shape {res.gamma_alpha} is "
+             f"more than {REAL_ALPHA_ATOL} from the JAX run's "
+             f"{meta['gamma_alpha']}")
+    if ll_rtol is not None and not abs(lls["port"] - lls["jax_run"]) <= \
+            ll_rtol * abs(lls["jax_run"]):
+        fail(f"real data {meta['run']}: LL {lls['port']} is more than "
+             f"{ll_rtol} (relative) from the JAX run's {lls['jax_run']}")
+    if reps and (out["replicates"]["identical_topologies"] != reps
+                 or out["replicates"]["max_support_diff"] != 0):
+        fail(f"real data {meta['run']}: the replicates are not the JAX "
+             f"run's: {out['replicates']}")
+    return out
+
+
+def real_data_phase(dev) -> dict:
+    """Each of REAL_RUNS through run_stage2_aligned on the card, the
+    pruning launch counts reset just before and read just after (both
+    kernels must launch), then real_data_compare and path_checks (the
+    full tree, and the first replicate block where there are
+    replicates).  Prints the real_data line; returns each run's
+    path_checks."""
+    import torch
+    from pepr_tpu_torch.ops import pruning
+    from pepr_tpu_torch.parallel.replicates import BLOCK_REPS
+    from pepr_tpu_torch.pipeline.stage2 import run_stage2_aligned
+    if dict(REAL_RUNS)["aqu"] != BLOCK_REPS:
+        fail(f"real_data's aqu replicates are not one block ({BLOCK_REPS})")
+    t0 = time.time()
+    runs, checks = {}, {}
+    for run, reps in REAL_RUNS:
+        t = time.time()
+        alns, meta = load_realdata(run)
+        load_s = time.time() - t
+        cfg = real_config(meta, reps)
+        torch.cuda.synchronize()
+        pruning.reset_launch_counts()
+        t = time.time()
+        res = run_stage2_aligned(alns, cfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = dict(pruning.LAUNCHES)
+        for k, n in launches.items():
+            if n <= 0:
+                fail(f"kernel {k} was not launched on the real_data path "
+                     f"({run})")
+        t = time.time()
+        cmp = real_data_compare(res, meta, reps, dev)
+        cmp_s = time.time() - t
+        t = time.time()
+        checks[run] = path_checks(res, reps, cfg.seed, dev)
+        seconds = dict(load=load_s, stage2=wall, compare=cmp_s,
+                       path_checks=time.time() - t, **res.timings)
+        runs[run] = dict(
+            cmp, support_reps=reps, launches=launches,
+            seconds={k: round(v, 3) for k, v in seconds.items()},
+            **checks[run])
+        del res
+        torch.cuda.empty_cache()
+    phase("real_data", seconds=round(time.time() - t0, 3), runs=runs)
+    return checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3005,6 +3337,7 @@ def main(argv=None) -> int:
         return 2
     import numpy as np
 
+    from pepr_tpu_torch import native
     from pepr_tpu_torch.device import resolve_device
     from pepr_tpu_torch.models.concat import concatenate
     from pepr_tpu_torch.models.msa import (ALIGN, Alignment,
@@ -3043,16 +3376,29 @@ def main(argv=None) -> int:
     dev = resolve_device("cuda")
     warm = warm_rank_imports(_cuda.BUILD_DIR)
 
-    # -- build: every source, one nvcc each, side by side
+    # -- build: every source, one nvcc each, side by side; then the
+    # native host library with g++
     t = time.time()
     logs = _cuda.build(force=True)
     pruning.library()
     sw.library()
     hmm_kernel.library()
-    phase("build", seconds=round(time.time() - t, 3), ptxas={
-        n: [ln.strip() for ln in lg.splitlines()
-            if "entry function" in ln or "registers" in ln or "spill" in ln]
-        for n, lg in logs.items()})
+    cuda_s = time.time() - t
+    t = time.time()
+    native.build(force=True)
+    native.library()
+    native_s = time.time() - t
+    phase("build", seconds=round(cuda_s + native_s, 3),
+          cuda_seconds=round(cuda_s, 3), ptxas={
+              n: [ln.strip() for ln in lg.splitlines()
+                  if "entry function" in ln or "registers" in ln
+                  or "spill" in ln]
+              for n, lg in logs.items()},
+          native=dict(route="host C++, " + " ".join(
+                          (native.COMPILER, *native.FLAGS)),
+                      source="pepr_tpu_torch/native/fastio.cpp",
+                      library=native.lib_path(),
+                      seconds=round(native_s, 3)))
 
     sw_entry, s1 = stage1_phases(args.seed, dev, sm_clock)
     h = hmm_phases(args.seed, dev, sm_clock)
@@ -3333,6 +3679,10 @@ def main(argv=None) -> int:
     o_checks = stage2_options_phase(alignments, truth, args.seed, dev,
                                     sm_clock)
 
+    # -- real_data: the reference's Aquificales and Erysipelotrichi
+    # families through stage 2, against the JAX run's results
+    r_checks = real_data_phase(dev)
+
     # -- tools: per-site LLs of competing trees, the AU test, the six
     # CLIs and the tree-builder comparison
     import tempfile
@@ -3369,7 +3719,7 @@ def main(argv=None) -> int:
     # largest over every shape checked
     every = list(shapes.values()) + [
         v for c in (checks, p_checks, o_checks["a"], o_checks["b"],
-                    o_checks["c"], t_checks)
+                    o_checks["c"], t_checks, *r_checks.values())
         for v in c["kernel_shapes"].values()]
 
     def entry(k):

@@ -8,7 +8,9 @@ FASTA and blast8 I/O, trees, simulator) are its own copies.  Stage 1
 through a hand-written CUDA kernel (csrc/sw.cu); stage 2's pruning
 likelihood and its gradient run as hand-written CUDA kernels
 (csrc/pruning.cu).  The kernels are built with nvcc at first use
-(ops/_cuda.py).  The tools (tools/: tree comparison with per-site
+(ops/_cuda.py), and the host's FASTA scanner, k-mer counter and
+union-find (native/fastio.cpp, the JAX package's C++) with g++.  The
+tools (tools/: tree comparison with per-site
 log-likelihoods, the AU test, support decoration, set extraction,
 MinHash distances, the tree-builder comparison) run as
 `python -m pepr_tpu_torch.tools.<name>`.  Entry points run on the card

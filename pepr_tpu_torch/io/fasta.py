@@ -4,9 +4,11 @@ Reproduces the reference's data model (FastaSequenceFile.java:46-181:
 line-indexed FASTA with ID->index map and taxon extraction;
 FastaUtilities.java:25-114: taxon name = last [...]-bracketed field of
 the title, pipe-suffix stripped, forbidden characters -> underscore) as
-a host-side loader that produces padded device-ready arrays.  The JAX
-package's native C++ scanner is not carried over: this is its numpy
-path.
+a host-side loader that produces padded device-ready arrays.  Protein
+files go through the native scanner (`native/fastio.cpp`), as in the
+JAX package; `read_fasta_reference` is the line-by-line reader, the
+path for the nucleotide alphabet and the plain version the tests hold
+the scanner against.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from pepr_tpu_torch.alphabet import PAD, encode, decode
+from pepr_tpu_torch.native import native_read_fasta
 
 _FORBIDDEN = re.compile(r"[ ():,\[\]]")
 
@@ -122,15 +125,31 @@ class SequenceSet:
         return [decode(s) for s in self.seqs]
 
 
-def read_fasta(path: str, name: str | None = None,
-               alphabet: str = "aa") -> SequenceSet:
-    """alphabet="nt" encodes with the nucleotide LUT (ACGT=0-3) for
-    the blastn-equivalent pipeline (BlastRunner.java:603-706 role)."""
+def _stem(path: str) -> str:
     stem = os.path.basename(path)
     for suffix in (".faa", ".fna", ".fasta", ".fa"):
         if stem.endswith(suffix):
-            stem = stem[: -len(suffix)]
-            break
+            return stem[: -len(suffix)]
+    return stem
+
+
+def read_fasta(path: str, name: str | None = None,
+               alphabet: str = "aa") -> SequenceSet:
+    """alphabet="nt" encodes with the nucleotide LUT (ACGT=0-3) for
+    the blastn-equivalent pipeline (BlastRunner.java:603-706 role).
+    Protein files are read by the native scanner (its table is the
+    protein one), nucleotide files line by line, as the JAX package
+    reads them."""
+    if alphabet != "aa":
+        return read_fasta_reference(path, name, alphabet)
+    titles, seqs = native_read_fasta(path)
+    return SequenceSet(name or _stem(path), titles, seqs, source_path=path)
+
+
+def read_fasta_reference(path: str, name: str | None = None,
+                         alphabet: str = "aa") -> SequenceSet:
+    """The line-by-line reader: stripped lines, a record at each line
+    that starts with '>'."""
     titles: list[str] = []
     chunks: list[list[str]] = []
     with open(path, "r") as fh:
@@ -150,7 +169,7 @@ def read_fasta(path: str, name: str | None = None,
         seqs = [encode_nt("".join(c)) for c in chunks]
     else:
         seqs = [encode("".join(c)) for c in chunks]
-    return SequenceSet(name or stem, titles, seqs, source_path=path)
+    return SequenceSet(name or _stem(path), titles, seqs, source_path=path)
 
 
 def write_fasta(path: str, sset: SequenceSet, width: int = 60,

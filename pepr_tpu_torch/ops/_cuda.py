@@ -4,10 +4,11 @@ Every `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own
 library `_build/libpepr_<name>.so`, with a plain C interface loaded by
 `ctypes` (no PyTorch headers, so a build takes seconds).  A library is
 rebuilt when its source's hash differs from the one stored beside it.
-`build()` starts one `nvcc` per source, all at once, and waits for them.
-The library and its stamp are each written to a temporary file and
-renamed into place, so a process never loads a half-written library or
-reads a half-written stamp.  Over several ranks the node's local rank 0
+`build()` starts one `nvcc` per source, all at once, and waits for them
+(`utils/libbuild.py`, which the native host library's `g++` build
+shares: the library and its stamp are each written to a temporary file
+and renamed into place, so a process never loads a half-written library
+or reads a half-written stamp).  Over several ranks the node's local rank 0
 builds while the others wait at a barrier
 (`parallel.mesh.initialize_distributed`).
 """
@@ -15,14 +16,14 @@ builds while the others wait at a barrier
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
+from pepr_tpu_torch.utils.libbuild import (BUILD_DIR, compile_libraries,
+                                           file_digest, up_to_date)
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
 SOURCES = ("pruning", "sw", "hmm")
 
 
@@ -57,16 +58,7 @@ def nvcc_command(nvcc: str, source: str, out_path: str) -> list[str]:
 
 
 def _source_hash(name: str) -> str:
-    with open(source_path(name), "rb") as fh:
-        return hashlib.sha256(fh.read()).hexdigest()
-
-
-def _up_to_date(name: str, digest: str) -> bool:
-    stamp = lib_path(name) + ".sha256"
-    if not (os.path.exists(lib_path(name)) and os.path.exists(stamp)):
-        return False
-    with open(stamp) as fh:
-        return fh.read().strip() == digest
+    return file_digest(source_path(name))
 
 
 def build(names=SOURCES, force: bool = False) -> dict[str, str]:
@@ -75,38 +67,15 @@ def build(names=SOURCES, force: bool = False) -> dict[str, str]:
     output} for what was built."""
     todo = {n: _source_hash(n) for n in names}
     if not force:
-        todo = {n: d for n, d in todo.items() if not _up_to_date(n, d)}
+        todo = {n: d for n, d in todo.items()
+                if not up_to_date(lib_path(n), d)}
     if not todo:
         return {}
-    os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = find_nvcc()
-    procs = {}
-    for n in todo:
-        tmp = f"{lib_path(n)}.{os.getpid()}.tmp"
-        # output to a file, not a pipe: a full pipe would stall one
-        # compiler while another is waited on
-        with open(tmp + ".log", "w") as log:
-            procs[n] = (tmp, subprocess.Popen(
-                nvcc_command(nvcc, source_path(n), tmp), stdout=log,
-                stderr=subprocess.STDOUT))
-    logs, failed = {}, []
-    for n, (tmp, proc) in procs.items():
-        proc.wait(timeout=900)
-        with open(tmp + ".log") as log:
-            logs[n] = log.read()
-        os.remove(tmp + ".log")
-        if proc.returncode != 0:
-            failed.append(n)
-            continue
-        os.replace(tmp, lib_path(n))
-        with open(tmp + ".sha256", "w") as fh:
-            fh.write(todo[n] + "\n")
-        os.replace(tmp + ".sha256", lib_path(n) + ".sha256")
-    if failed:
-        raise RuntimeError("nvcc failed to build "
-                           + ", ".join(f"csrc/{n}.cu" for n in failed) + ":\n"
-                           + "\n".join(logs[n] for n in failed))
-    return logs
+    return compile_libraries({
+        n: (lambda out, n=n: nvcc_command(nvcc, source_path(n), out),
+            lib_path(n), d, f"csrc/{n}.cu")
+        for n, d in todo.items()})
 
 
 def load(name: str, argtypes: dict, restypes: dict) -> ctypes.CDLL:

@@ -3,9 +3,11 @@
 The replacement for blat's seed/tile stage (BlatRunner.java:424-430
 runs blat with protein tiles, stepSize=1), in two candidate stages:
 
-- `kmer_profiles`, `exact_kmer_pairs` and `seed_candidates` run on the
-  host in numpy and scipy (the JAX package's native C++ counting loop
-  is not carried over: this is its numpy path);
+- `kmer_profiles` runs the native counting loop (`native/fastio.cpp`,
+  as the JAX package does; `kmer_profiles_reference` is its numpy
+  plain version, whose float32 norm can differ by an ulp), and
+  `exact_kmer_pairs` and `seed_candidates` run on the host in numpy and
+  scipy;
 - `candidate_pairs` puts the padded (G, gmax, dim) target blocks on the
   device once and, per query tile, takes the cosine similarities
   against every genome block in one float32 einsum (TF32 off) and the
@@ -21,6 +23,7 @@ import torch
 
 from pepr_tpu_torch.alphabet import N_AA
 from pepr_tpu_torch.device import resolve_device
+from pepr_tpu_torch.native import native_kmer_profiles
 
 DEFAULT_DIM = 1024
 DEFAULT_K = 4
@@ -32,9 +35,19 @@ def kmer_profiles(seqs: list[np.ndarray], k: int = DEFAULT_K,
 
     Counts are clipped so low-complexity repeats don't dominate the
     cosine similarity.  Ambiguous codes (>= 20) are excluded from
-    k-mer windows.  Vectorized over the concatenation of all sequences
-    (windows crossing sequence boundaries are masked out).
+    k-mer windows.  The native loop takes each row's norm in float64
+    and multiplies, as the JAX package's does.
     """
+    return native_kmer_profiles(seqs, k, dim, clip)
+
+
+def kmer_profiles_reference(seqs: list[np.ndarray], k: int = DEFAULT_K,
+                            dim: int = DEFAULT_DIM,
+                            clip: int = 3) -> np.ndarray:
+    """`kmer_profiles` in numpy, vectorized over the concatenation of
+    all sequences (windows crossing sequence boundaries are masked
+    out); the norm is taken in float32 and divided, so a row can differ
+    from the native one by an ulp."""
     n = len(seqs)
     out = np.zeros((n, dim), dtype=np.float32)
     if n == 0:

@@ -5,8 +5,8 @@ Replacement for the reference's native `mcl` invocation
 
 MCL never merges disconnected components, so the hit graph is first
 split into connected components on the host (union-find over the edge
-list, numpy; the JAX package's native C++ union-find is not carried
-over), the components are bucketed by padded size, and each bucket runs
+list in the native library, `native/fastio.cpp`, as in the JAX
+package), the components are bucketed by padded size, and each bucket runs
 the expand (batched float32 `torch.bmm`) -> inflate (elementwise power)
 -> renormalize loop on the device until convergence.  Self-loops are
 added per column with the column's max edge weight (mcl's default loop
@@ -19,12 +19,20 @@ import numpy as np
 import torch
 
 from pepr_tpu_torch.device import resolve_device
+from pepr_tpu_torch.native import native_connected_components
 
 
 # -- host side: union-find components -------------------------------------
 
 def connected_components(n: int, edges_i: np.ndarray,
                          edges_j: np.ndarray) -> np.ndarray:
+    """Each node's component root, by the native union-find."""
+    return native_connected_components(n, edges_i, edges_j)
+
+
+def connected_components_reference(n: int, edges_i: np.ndarray,
+                                   edges_j: np.ndarray) -> np.ndarray:
+    """`connected_components` in Python (the same roots)."""
     parent = np.arange(n, dtype=np.int64)
 
     def find(x):

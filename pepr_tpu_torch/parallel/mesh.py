@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pepr_tpu_torch import native
 from pepr_tpu_torch.alphabet import PAD
 from pepr_tpu_torch.device import rank_device, resolve_device
 from pepr_tpu_torch.ops.likelihood import (WagModel, loglik_weighted,
@@ -69,9 +70,10 @@ def initialize_distributed(coordinator: str | None = None,
     The backend is NCCL for a CUDA device and Gloo for the CPU unless
     named.  A rank's card is cuda:(LOCAL_RANK % device_count)
     (`device.rank_device`; LOCAL_RANK defaults to the rank, and
-    LOCAL_WORLD_SIZE, the ranks on this node, to the world size).  On
-    the card the node's local rank 0 builds the kernels while the other
-    ranks wait at a barrier, then every rank loads them."""
+    LOCAL_WORLD_SIZE, the ranks on this node, to the world size).  The
+    node's local rank 0 builds the native host library, and on the card
+    the kernels, while the other ranks wait at a barrier; then every
+    rank loads them."""
     coordinator = coordinator or os.environ.get("PEPR_COORDINATOR")
     if coordinator is None:
         return False
@@ -92,11 +94,12 @@ def initialize_distributed(coordinator: str | None = None,
                     int(os.environ.get("LOCAL_WORLD_SIZE", world)), backend)
     dist.init_process_group(backend, init_method=init,
                             timeout=timedelta(seconds=timeout), **kw)
-    if dev.type == "cuda":
-        if local_rank == 0:
+    if local_rank == 0:
+        native.build()
+        if dev.type == "cuda":
             from pepr_tpu_torch.ops import _cuda
             _cuda.build()
-        barrier()
+    barrier()
     return True
 
 

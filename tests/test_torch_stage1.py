@@ -107,6 +107,43 @@ def test_run_stage1_end_to_end(genomes, smoke):
     assert joined >= len(res.hg_sets) // 2
 
 
+def test_stage1_native_checks_rehearsal(genomes, smoke, monkeypatch):
+    """The stage1 phase's native checks: native_inputs records the
+    universe's profiles and the hit graph's components while run_stage1
+    runs (and puts the functions back), native_checks holds them against
+    the plain versions; a profile two ulps off and a wrong root fail."""
+    from pepr_tpu_torch.models import homology
+    from pepr_tpu_torch.ops import mcl
+    ing, pool, _ = genomes
+    before = (homology.kmer_profiles, mcl.connected_components)
+    with smoke.native_inputs() as seen:
+        run_stage1(ing, pool, Stage1Config(use_hmm=False, outgroup_count=2),
+                   device="cpu")
+    assert (homology.kmer_profiles, mcl.connected_components) == before
+    out = smoke.native_checks(seen)
+    n = sum(len(g) for g in ing)  # the universe: the ingroup genomes
+    assert [p["rows"] for p in out["kmer_profiles"]] == [n]
+    assert out["kmer_profiles"][0]["max_ulps"] <= 1.0
+    assert out["connected_components"][0]["identical"]
+    assert out["connected_components"][0]["nodes"] == n
+    a, kw, got = seen["kmer_profiles"][0]
+    bad = got.copy()
+    i = np.flatnonzero(bad)[0]
+    bad.flat[i] = np.nextafter(np.nextafter(bad.flat[i], 2.0,
+                                            dtype=np.float32), 2.0,
+                               dtype=np.float32)
+    monkeypatch.setattr(smoke, "fail", lambda msg: (_ for _ in ()).throw(
+        AssertionError(msg)))
+    with pytest.raises(AssertionError, match="more than one ulp"):
+        smoke.native_checks(dict(seen, kmer_profiles=[(a, kw, bad)]))
+    a, kw, got = seen["connected_components"][0]
+    wrong = got.copy()
+    wrong[0] = len(wrong)
+    with pytest.raises(AssertionError, match="components differ"):
+        smoke.native_checks(dict(seen, connected_components=[(a, kw,
+                                                              wrong)]))
+
+
 def test_family_recovery_counts_only_clean_groups(genomes, smoke):
     ing, _, _ = genomes
     fams = {}
