@@ -3,8 +3,10 @@
 log-likelihoods, the AU test and the six CLIs), the fan-out over ranks
 (the mesh, at one NCCL rank and at four Gloo ranks sharing the card),
 the reference's own Aquificales and Erysipelotrichi families through
-stage 2 against the JAX run's results, and run_pepr, the reference's
-default run from genomes to its output files.
+stage 2 against the JAX run's results, run_pepr, the reference's
+default run from genomes to its output files, and the nucleotide
+pipeline (`pepr -alphabet nt`) through the pipeline CLI from FASTA files
+at real gene lengths.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -58,7 +60,8 @@ Phases, each printing one JSON line with the elapsed seconds:
            pack); the pool genome must be selected; the
            enhancer's prefilter pairs, scored pairs by bucket, padded and
            real DP cells and its sub-phase seconds (alignment, prefilter,
-           scoring) are printed
+           scoring) and the MSA and plan-cache tallies (ALIGN, GRAPHS,
+           reset just before) are printed
   hmm_kernel  the HMM kernel against its plain PyTorch version on the
            stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a reference
            (lpad, mpad) bucket, Forward and Viterbi, within HMM_ATOL +
@@ -74,6 +77,15 @@ Phases, each printing one JSON line with the elapsed seconds:
            largest launch (the widest pack's), its time beside its bound,
            HMM_CHECK_PAIRS of its own scores held against the plain
            version, which is timed on them beside the kernel
+  nt_small  the nucleotide pipeline on the card and on the CPU
+           (nt_small_runs): run_pepr(alphabet="nt") with the default
+           track, no HMM, fast_ml and NT_SMALL_REPS replicates, on 4
+           ingroup genomes and the pool (nt_small_genomes: short genes,
+           a planted clade that refines once, a pool gene of
+           NT_SMALL_LONG nt, past SW's 4,096); every run_stage1's groups
+           and outgroups identical, the trees' RF 0, the same refinement
+           rounds (at least one) and LLs within FINAL_LL_RTOL
+           (nt_small_checks)
   data     the seeded 53-taxon dataset: 405 WAG+Gamma(0.5) families of
            100-250 columns, 64,433 concatenated columns, ~10% of the
            taxa absent from each family
@@ -100,7 +112,8 @@ Phases, each printing one JSON line with the elapsed seconds:
            pointers; release_plans gives back the plans' memory, and with
            the plan cache's share at 0 every shape evicts the last and the
            results stay identical; the DP step's time run eagerly,
-           captured as a CUDA graph and replayed; on the last merge wave
+           captured as CUDA graphs (a chunk of CHUNK steps, the first
+           and a later one) and replayed; on the last merge wave
            of the stage-2 input's true alignments (each family's rows
            split in two halves) the pointers and scores that differ are
            counted; and
@@ -203,8 +216,8 @@ Phases, each printing one JSON line with the elapsed seconds:
            one all_reduce): default_mesh() is (1, 1), sharded_loglik of
            the generating tree over the 64,433 columns bit-identical to
            loglik, sharded_replicate_blopt of DIST_REPS jackknife
-           replicates (the stage2 phase's masks, NJ start trees) for 60
-           steps bit-identical to replicate_blopt, both timed, and
+           replicates (the stage2 phase's masks, NJ start trees) for
+           DIST_STEPS steps bit-identical to replicate_blopt, both timed, and
            support_trees_batched on a small input (DIST_SMALL) at one
            rank; then the group is destroyed; (b) DIST_RANKS ranks that
            share the card over Gloo on CUDA tensors, spawned (run_ranks,
@@ -229,7 +242,8 @@ Phases, each printing one JSON line with the elapsed seconds:
            writing; then path_checks on its stage-2 result, as in
            stage2 (stage 1's groups to a tree over the 12 genomes; the
            full tree's gradient also against a float64 plain gradient,
-           both float32 sides' errors printed)
+           both float32 sides' errors printed); the MSA and plan-cache
+           tallies (ALIGN, GRAPHS, reset just before) are printed
   resume   (a) the pepr run's store: files and bytes of the store and
            of each refinement sub-store, the seconds and number of saves,
            and the pepr wall beside it; (b) run_pepr again, the same
@@ -247,12 +261,33 @@ Phases, each printing one JSON line with the elapsed seconds:
            chain's end must equal the whole run bit for bit (hits,
            groups, HMM bits, alignments, Newick with lengths, supports,
            LL); alignment slices of RESUME_CHUNK families in all runs
+  nt_pepr  the nucleotide pipeline at full width (nt_pepr_phase): 11
+           ingroup genomes and the pool of NT_PEPR_FAMILIES families and
+           NT_PEPR_RANDOM random genes (nt_pepr_genomes: median 918 nt,
+           NT_N_LONG families of 6,300-7,800 nt, pepr_genomes' planted
+           clade) written as FASTA files, then
+           pepr_tpu_torch.pipeline.cli.main with -alphabet nt -hmm false
+           -support_reps NT_PEPR_REPS -refine_cutoff NT_PEPR_REPS and a
+           checkpoint store (nt_pepr_argv); every launch count and the
+           MSA and plan-cache tallies reset just before and read just
+           after; it must exit 0, write every file of PEPR_FILES, put
+           the ingroup and the selected outgroups at the leaves, select
+           the pool genome, use GTR, refine once or more, recover
+           families at RECOVERY_FLOOR, and launch SW and both pruning
+           kernels and never the HMM kernel; then path_checks under the
+           run's GTR and under a GTR of NT_UNEQUAL_RATES (dead states
+           within DEAD_LEAK_TOL) and on the first refinement sub-run's
+           full tree, and nt_sw_checks: the SW kernel against
+           its plain version under the nucleotide table on
+           SW_CHECK_PAIRS pairs of the run's dominant and largest
+           buckets, every bucket timed at the main path's launches
   profile  torch.profiler's device time by kernel over a shallower
            stage-2 run from the true alignments (run_stage2_aligned,
            fast_ml, PROFILE_REPS replicates), so the stage2 time above
            carries no profiler overhead
 Then one JSON line with every kernel's numbers (launches from the pepr
-run), the nvidia-smi line, and the result line.  Any failure ends the
+run, and from the nt_pepr run as launches_nt), the nvidia-smi line, and
+the result line.  Any failure ends the
 run with a non-zero exit; without a CUDA device it exits 2 and prints no
 result.
 """
@@ -290,13 +325,14 @@ S1_POOL = 1
 S1_FAMILIES = 1300
 S1_RANDOM = 100
 # profile_stage1's ingroup genomes: all 11 until the stage2_options
-# phase came
-PROFILE_S1_INGROUP = 4
+# phase came, 4 until the nt phases came
+PROFILE_S1_INGROUP = 2
 # pairs per bucket held against the plain version: 256 until the
-# distributed phase came
-SW_CHECK_PAIRS = 128
+# distributed phase came, 128 until the nt phases came
+SW_CHECK_PAIRS = 64
 # the same for the HMM kernel (hmm_kernel): 512 until the distributed
-# phase came
+# phase came (256 pairs take as long as 128: the plain version's time
+# follows a pack's steps)
 HMM_CHECK_PAIRS = 256
 RECOVERY_FLOOR = 0.5  # a broken path recovers far fewer families
 
@@ -308,8 +344,9 @@ KERNEL_TREES = 4
 SUPPORT_REPS = 100  # the pipeline's default (the kernels phase's block)
 # the stage2 phase's replicates: cut from the default 100 to keep the
 # script within its 600 s once the pepr phase came (100 took 605.5 s
-# on one run), and from 50 to 16 when the stage2_options phase came
-STAGE2_REPS = 16
+# on one run), from 50 to 16 when the stage2_options phase came, and to
+# 8 when the nt phases came
+STAGE2_REPS = 8
 # the profile phase's replicates: 8 until the stage2_options phase came
 PROFILE_REPS = 4
 # stage2_options: A's nj replicates and B's bootstrap replicates, the
@@ -318,7 +355,7 @@ PROFILE_REPS = 4
 OPTION_REPS = 16
 OPTION_CLADES = 4
 OPTION_MAX_CANDIDATES = 64
-NT_FAMILIES = 80
+NT_FAMILIES = 40  # 80 until the nt phases came
 NT_LENGTH = (300, 750)
 NT_REPS = 8
 # int32 operations of one Fitch child combine in the algorithm: the
@@ -378,12 +415,11 @@ REAL_LL_RTOL = 1e-5
 # every depth cut made for the 600 s budget, printed in the stage2_start
 # line (PERF.md §4 has the seconds each saved)
 CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
-        f"stage2 support_reps 50 -> {STAGE2_REPS} (the stage2_options "
-        "phase)",
+        "stage2 support_reps 50 -> 16 (the stage2_options phase)",
         f"profile support_reps 8 -> {PROFILE_REPS} (the stage2_options "
         "phase)",
-        f"profile_stage1 ingroup {S1_INGROUP} -> {PROFILE_S1_INGROUP} "
-        "genomes (the stage2_options phase)",
+        f"profile_stage1 ingroup {S1_INGROUP} -> 4 genomes (the "
+        "stage2_options phase)",
         "stage2_options C: 80 nucleotide families, not 120 (the same)",
         f"tools au_test reps 2000 -> {AU_REPS}, in the two CLI runs -> "
         f"{AU_CLI_REPS} (the tools phase)",
@@ -391,10 +427,9 @@ CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
         "(the same)",
         f"tools compare_builders columns {N_COLUMNS} -> {TOOLS_COLUMNS} "
         "(the same)",
-        f"sw_kernel plain check pairs a bucket 256 -> {SW_CHECK_PAIRS} (the "
-        "distributed phase)",
-        f"hmm_kernel plain check pairs a bucket 512 -> {HMM_CHECK_PAIRS} "
-        "(the same)",
+        "sw_kernel plain check pairs a bucket 256 -> 128 (the distributed "
+        "phase)",
+        "hmm_kernel plain check pairs a bucket 512 -> 256 (the same)",
         f"real_data support_reps {SUPPORT_REPS} -> {dict(REAL_RUNS)['aqu']} "
         f"(aqu) and -> {dict(REAL_RUNS)['ery']} (ery) (the real_data phase)"]
 # distributed: the ranks that share the card in (b)-(d), the replicates
@@ -402,10 +437,12 @@ CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
 # the support path's steps), the small support input of (c) (taxa,
 # families, replicates) and the tolerances against one rank: totals
 # (site slices summed in another order), and the fits' lengths and LLs
-# (those of tests/test_torch_support.py::test_replicate_blopt_matches_sharded)
+# (those of tests/test_torch_support.py::test_replicate_blopt_matches_sharded);
+# the steps were the support path's 60 until the nt phases came (the
+# gates compare ranks with one rank, not with convergence)
 DIST_RANKS = 4
 DIST_REPS = STAGE2_REPS
-DIST_STEPS = 60
+DIST_STEPS = 30
 DIST_SMALL = dict(taxa=12, families=8, reps=8)
 DIST_LL_RTOL = 1e-6
 DIST_BLEN_RTOL = 1e-3
@@ -464,6 +501,61 @@ RESUME_CHUNK = 8
 RESUME_STAGES = ("homology SW", "profile HMM scoring", "family alignment",
                  "full-tree NNI", "support BL-opt")
 RESUME_MAX_RUNS = 400
+# the nucleotide pipeline (nt_small, nt_pepr): genes three times the
+# protein generator's length (a lognormal of median 918 nt and shape 0.5
+# clipped to NT_GENE_CLIP, NT_N_LONG families drawn from NT_LONG; past
+# the SW packing's 4,096 and into the profile DP's 8,192 bucket),
+# evolved under JC+Gamma(NT_ALPHA) down pepr_tree's topology at a third
+# of its branch lengths (genomes within a genus: the ingroup 0.1-0.2
+# substitutions a site apart), the pool genome on a basal branch of
+# NT_POOL_BRANCH (found by blastn-style +1/-3 scores), the ingroup's
+# stem NT_STEM_BRANCH; random genes uniform ACGT of the same lengths
+NT_GENE_MEDIAN = 918.0
+NT_GENE_SIGMA = 0.5
+NT_GENE_CLIP = (150, 6000)
+NT_LONG = (6300, 7800)
+NT_N_LONG = 3
+NT_ALPHA = 0.5
+NT_BRANCH_SCALE = 1.0 / 3.0
+NT_POOL_BRANCH = 0.15
+NT_STEM_BRANCH = 0.02
+# nt_pepr: the families and random genes of each genome (the protein
+# cell has 1,300 and 100), the jackknife replicates (the default track's
+# 100; refinement's cutoff is a count of replicates, so it is set to
+# NT_PEPR_REPS, 100% as the default's 100 of 100)
+NT_PEPR_FAMILIES = 300
+NT_PEPR_RANDOM = 30
+NT_PEPR_REPS = 32
+# exchangeabilities (AC, AG, AT, CG, CT, GT) of the unequal GTR that
+# nt_pepr's path_checks run beside the run's own equal-rate GTR
+NT_UNEQUAL_RATES = (1.0, 4.0, 0.7, 1.3, 5.0, 1.0)
+# nt_small: 4 ingroup genomes and the pool, short genes (lognormal median
+# 150 nt clipped to NT_SMALL_CLIP) so that the CPU run takes seconds,
+# and one random gene of NT_SMALL_LONG nt in the pool genome (past SW's
+# 4,096: cut at packing in outgroup scoring); the clade's internal
+# branch NT_SMALL_CLADE_BRANCH long carries a few substitutions, so the
+# full data resolve it and a jackknife replicate may not; fast_ml with
+# NT_SMALL_REPS replicates, refinement's cutoff NT_SMALL_REPS
+NT_SMALL_FAMILIES = 10
+NT_SMALL_RANDOM = 2
+NT_SMALL_MEDIAN = 150.0
+NT_SMALL_CLIP = (100, 250)
+NT_SMALL_LONG = 4500
+NT_SMALL_CLADE_BRANCH = 1e-3
+NT_SMALL_REPS = 4
+# the cuts made when the nt phases came
+CUTS += [f"nt_pepr families 1300 -> {NT_PEPR_FAMILIES} and random genes "
+         f"100 -> {NT_PEPR_RANDOM} a genome, support_reps 100 -> "
+         f"{NT_PEPR_REPS} (the nt_pepr phase)",
+         f"distributed Adam steps 60 -> {DIST_STEPS} (the nt phases)",
+         f"stage2 support_reps 16 -> {STAGE2_REPS}, so distributed "
+         f"replicates 16 -> {DIST_REPS} (the same)",
+         f"sw_kernel plain check pairs a bucket 128 -> {SW_CHECK_PAIRS}, "
+         "nt_pepr's the same (the same)",
+         f"stage2_options C nucleotide families 80 -> {NT_FAMILIES} (the "
+         "same)",
+         f"profile_stage1 ingroup 4 -> {PROFILE_S1_INGROUP} genomes (the "
+         "same)"]
 
 
 def phase(label: str, **info) -> None:
@@ -626,37 +718,44 @@ def planted_nt_pairs(rng, n: int, lq: int, lt: int):
 def nt_families(tree, lengths, rng, absent: float = 0.1, min_taxa: int = 4,
                 alpha: float = 0.5):
     """Nucleotide families evolved down `tree` under Jukes-Cantor with
-    Gamma(`alpha`) site rates: on a branch of length t a site of rate r is
-    redrawn uniformly from ACGT with probability 1 - exp(-4 r t / 3),
-    which is JC's transition matrix.  One (name, taxa, codes) triple per
-    entry of `lengths`, each family missing a random ~`absent` share of
-    the taxa (at least `min_taxa` stay), as `simulate_families` does for
-    proteins."""
-    import math
+    Gamma(`alpha`) site rates (`nt_evolve`).  One (name, taxa, codes)
+    triple per entry of `lengths`, each family missing a random
+    ~`absent` share of the taxa (at least `min_taxa` stay), as
+    `simulate_families` does for proteins."""
     import numpy as np
     leaves = tree.leaves()
     taxa = [tree.labels[i] for i in leaves]
     fams = []
     for g, length in enumerate(lengths):
-        rates = rng.gamma(alpha, 1.0 / alpha, size=int(length))
-        states = {tree.root: rng.integers(0, 4, int(length)).astype(np.int8)}
-        for node in tree.preorder():
-            if node == tree.root:
-                continue
-            t = tree.blen[node]
-            t = 0.1 if math.isnan(t) else float(t)
-            cur = states[tree.parent[node]].copy()
-            hit = rng.random(int(length)) < 1.0 - np.exp(-4.0 * rates * t
-                                                          / 3.0)
-            cur[hit] = rng.integers(0, 4, int(hit.sum()))
-            states[node] = cur
+        codes = nt_evolve(tree, int(length), rng, alpha)
         keep = rng.random(len(taxa)) >= absent
         if keep.sum() < min_taxa:
             keep[rng.choice(len(taxa), size=min_taxa, replace=False)] = True
         idx = np.nonzero(keep)[0]
-        fams.append((f"ntfam{g:04d}", [taxa[i] for i in idx],
-                     np.stack([states[leaves[i]] for i in idx])))
+        fams.append((f"ntfam{g:04d}", [taxa[i] for i in idx], codes[idx]))
     return fams
+
+
+def nt_evolve(tree, length: int, rng, alpha: float = 0.5):
+    """(n_leaves, length) int8 ACGT codes of one site pattern evolved
+    down `tree` under Jukes-Cantor with Gamma(`alpha`) site rates, rows
+    in `tree.leaves()` order: on a branch of length t a site of rate r
+    is redrawn uniformly from ACGT with probability
+    1 - exp(-4 r t / 3), which is JC's transition matrix."""
+    import math
+    import numpy as np
+    rates = rng.gamma(alpha, 1.0 / alpha, size=length)
+    states = {tree.root: rng.integers(0, 4, length).astype(np.int8)}
+    for node in tree.preorder():
+        if node == tree.root:
+            continue
+        t = tree.blen[node]
+        t = 0.1 if math.isnan(t) else float(t)
+        cur = states[tree.parent[node]].copy()
+        hit = rng.random(length) < 1.0 - np.exp(-4.0 * rates * t / 3.0)
+        cur[hit] = rng.integers(0, 4, int(hit.sum()))
+        states[node] = cur
+    return np.stack([states[v] for v in tree.leaves()])
 
 
 # The planted tie of tests/test_torch_sw_ties.py (AA_ORDER codes): motif
@@ -1050,6 +1149,19 @@ def block_check(codes_r, w_r, ch, pm, pi, length: int) -> dict:
             0, n_rep, max(1, n_rep // PLAIN_REP_TREES))))
 
 
+def dead_state_leak(pm, pi):
+    """The largest transition probability of `pm` (.., 20, 20) between a
+    dead state (pi <= 1e-6: nucleotide GTR's 16) and a live one, either
+    way; None for a model without dead states."""
+    import torch
+    dead = pi <= 1e-6
+    if not bool(dead.any()):
+        return None
+    live = ~dead
+    return float(torch.maximum(pm[..., dead, :][..., live].abs().max(),
+                               pm[..., live, :][..., dead].abs().max()))
+
+
 def path_checks(res, reps: int, seed: int, dev, model=None) -> dict:
     """The kernels at the shapes a run_stage2 run gave them, each against
     its plain version (check_kernels): the run's full tree over its
@@ -1096,12 +1208,8 @@ def path_checks(res, reps: int, seed: int, dev, model=None) -> dict:
                    kernel=ll_rel_wide,
                    plain=abs(ll_plain - ll_wide) / abs(ll_wide)),
                final_ll_rel=ll_rel)
-    dead = pi <= 1e-6
-    if bool(dead.any()):
-        live = ~dead
-        leak = float(torch.maximum(
-            pm[..., dead, :][..., live].abs().max(),
-            pm[..., live, :][..., dead].abs().max()))
+    leak = dead_state_leak(pm, pi)
+    if leak is not None:
         out["dead_state_leak"] = leak
         if not leak <= DEAD_LEAK_TOL:
             fail(f"a dead state's transition probability to a live one is "
@@ -1181,16 +1289,19 @@ def stage1_pair_list(ingroup, dev):
 
 
 def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
-                    sm_clock_mhz: float, reps: int = 3) -> dict:
+                    sm_clock_mhz: float, reps: int = 3,
+                    gaps: tuple = (11, 1)) -> dict:
     """Every bucket of a pair list cut into launches as the main path
     cuts it (`models/homology._bucketed_sw`: a bucket's pairs sorted by
     real cells, largest first, then batches of `batch_pairs`), each
     launch timed (median of `reps` CUDA-event timings after one
     warm-up).  Per bucket: pairs, launches, real and padded cells, ms
     (summed over its launches), ms per launch, the bound, real GCUPS and
-    the bound's share of the time; and the totals.  Uses only what the
-    port has had since the SW kernel came, so that `chip_turns.py` can
-    time an earlier checkout's kernel on the same launches."""
+    the bound's share of the time; and the totals.  `gaps` are the gap
+    open and extend scores ((5, 2) for the nucleotide table).  Uses only
+    what the port has had since the SW kernel came, so that
+    `chip_turns.py` can time an earlier checkout's kernel on the same
+    launches."""
     import numpy as np
     import torch
     from pepr_tpu_torch.models.homology import batch_pairs
@@ -1206,7 +1317,7 @@ def sw_bucket_table(ulens, eff_q, eff_t, buckets, codes, sub, dev,
             sel = idx[s0:s0 + step]
             q = codes[torch.as_tensor(eff_q[sel], device=dev), :blq]
             t = codes[torch.as_tensor(eff_t[sel], device=dev), :blt]
-            ms += time_ms(lambda: sw.sw_align(q, t, sub), reps)
+            ms += time_ms(lambda: sw.sw_align(q, t, sub, *gaps), reps)
         launches = -(-len(idx) // step)
         real = int(cells.sum())
         bound_ms, _ = sw_bound(real, len(idx) * (blq + blt), len(idx),
@@ -1526,13 +1637,22 @@ def pepr_genomes(seed: int):
     well-supported children (PhylogeneticTreeRefiner's rule) and is
     no candidate."""
     import numpy as np
-    from pepr_tpu_torch.tree import parse_newick
     from pepr_tpu_torch.utils.simulate import simulate_genomes
     rng = np.random.default_rng(seed + 20)
+    return simulate_genomes(rng, n_ingroup=S1_INGROUP, n_pool=S1_POOL,
+                            n_families=S1_FAMILIES, n_random=S1_RANDOM,
+                            ingroup_tree=pepr_tree(rng))
+
+
+def pepr_tree(rng, scale: float = 1.0):
+    """pepr_genomes' ingroup tree over the genomes 00-10: the planted
+    CLADE's internal branches PEPR_CLADE_BRANCH long, every other branch
+    `scale` (0.01 + Exp(0.06)) long."""
+    from pepr_tpu_torch.tree import parse_newick
     g = [f"Synthica_spec{i:02d}_strain_X" for i in range(S1_INGROUP)]
 
     def bl() -> str:
-        return f"{rng.exponential(0.06) + 0.01:.4f}"
+        return f"{scale * (rng.exponential(0.06) + 0.01):.4f}"
 
     def pair(x, y):
         return f"({x}:{bl()},{y}:{bl()})"
@@ -1543,10 +1663,222 @@ def pepr_genomes(seed: int):
     left = f"({clade}:{bl()},{pair(g[4], g[5])}:{bl()})"
     right = (f"({pair(g[6], g[7])}:{bl()},({g[8]}:{bl()},"
              f"{pair(g[9], g[10])}:{bl()}):{bl()})")
-    tree = parse_newick(f"({left},{right});")
-    return simulate_genomes(rng, n_ingroup=S1_INGROUP, n_pool=S1_POOL,
-                            n_families=S1_FAMILIES, n_random=S1_RANDOM,
-                            ingroup_tree=tree)
+    return parse_newick(f"({left},{right});")
+
+
+def nt_genomes(rng, ingroup_tree, n_families: int, n_random: int, *,
+               median_len: float = NT_GENE_MEDIAN,
+               clip: tuple = NT_GENE_CLIP, n_long: int = NT_N_LONG,
+               long_random: tuple = ()):
+    """Nucleotide genomes in the manner of `simulate_genomes`: the
+    ingroup tree (its leaves the ingroup taxa, `Synthica_specNN_strain_X`)
+    on an NT_STEM_BRANCH stem, one pool genome on an NT_POOL_BRANCH
+    basal branch; per family a length (lognormal of median `median_len`
+    and shape NT_GENE_SIGMA clipped to `clip`, `n_long` of them drawn
+    from NT_LONG), a lognormal(0, 0.35) rate multiplier on every
+    branch, its sites evolved under JC+Gamma(NT_ALPHA) (`nt_evolve`),
+    present in each ingroup genome with probability 0.8 and in the pool
+    with 0.85 (in at least 2 genomes), each copy with its seeded
+    deletions (`deletion_keep`); then `n_random` uniform ACGT genes a
+    genome of the same length law, and a random gene of each
+    (genome index, length) of `long_random` (the ingroup genomes in
+    order, then the pool).  Titles `famNNNN_<taxon>
+    [<name>]` (`rndNNNN_...`, `longNN_...`).  Returns (ingroup, pool,
+    generating tree)."""
+    import numpy as np
+    from pepr_tpu_torch.io.fasta import SequenceSet
+    from pepr_tpu_torch.tree import parse_newick, to_newick
+    in_taxa = sorted(ingroup_tree.leaf_labels())
+    pool_taxon = "Outgroupia_outg0_strain_Y"
+    tree = parse_newick(f"({to_newick(ingroup_tree)[:-1]}:{NT_STEM_BRANCH},"
+                        f"{pool_taxon}:{NT_POOL_BRANCH});")
+    leaves = [tree.labels[v] for v in tree.leaves()]
+    present_p = np.array([0.85 if t == pool_taxon else 0.8 for t in leaves])
+
+    def draw_lengths(n):
+        return np.clip(np.rint(median_len * np.exp(rng.normal(
+            0.0, NT_GENE_SIGMA, size=n))), *clip).astype(int)
+
+    lengths = draw_lengths(n_families)
+    if n_long:
+        lengths[rng.choice(n_families, size=n_long, replace=False)] = \
+            rng.integers(NT_LONG[0], NT_LONG[1] + 1, size=n_long)
+    titles = {t: [] for t in in_taxa + [pool_taxon]}
+    seqs = {t: [] for t in titles}
+    for f, length in enumerate(lengths):
+        scaled = tree.copy()
+        scaled.blen = scaled.blen * float(np.exp(rng.normal(0.0, 0.35)))
+        codes = nt_evolve(scaled, int(length), rng, NT_ALPHA)
+        keep = rng.random(len(leaves)) < present_p
+        if keep.sum() < 2:
+            keep[rng.choice(len(leaves), size=2, replace=False)] = True
+        for row, t, k in zip(codes, leaves, keep):
+            if k:
+                titles[t].append(f"fam{f:04d}_{t} [{t.replace('_', ' ')}]")
+                seqs[t].append(row[deletion_keep(len(row), rng)])
+    for t in titles:
+        for r, length in enumerate(draw_lengths(n_random)):
+            titles[t].append(f"rnd{r:04d}_{t} [{t.replace('_', ' ')}]")
+            seqs[t].append(rng.integers(0, 4, int(length)).astype(np.int8))
+    for r, (gi, length) in enumerate(long_random):
+        t = (in_taxa + [pool_taxon])[gi]
+        titles[t].append(f"long{r:02d}_{t} [{t.replace('_', ' ')}]")
+        seqs[t].append(rng.integers(0, 4, int(length)).astype(np.int8))
+    sets = {t: SequenceSet(t, titles[t], seqs[t]) for t in titles}
+    return [sets[t] for t in in_taxa], [sets[pool_taxon]], tree
+
+
+def nt_pepr_genomes(seed: int):
+    """nt_pepr's input: pepr_genomes' 11 ingroup taxa and planted clade at
+    NT_BRANCH_SCALE of its branch lengths, NT_PEPR_FAMILIES families
+    (NT_N_LONG long ones) and NT_PEPR_RANDOM random genes a genome at
+    the nucleotide lengths.  Returns (ingroup, pool, generating tree)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 30)
+    return nt_genomes(rng, pepr_tree(rng, NT_BRANCH_SCALE), NT_PEPR_FAMILIES,
+                      NT_PEPR_RANDOM)
+
+
+def nt_small_genomes(seed: int, n_ingroup: int = 4):
+    """nt_small's input: `n_ingroup` (at least 4) ingroup genomes whose
+    tree is (((00, 01):NT_SMALL_CLADE_BRANCH, 02):0.02, (...(03, 04),
+    ...)), every other branch 0.02-0.04 long, NT_SMALL_FAMILIES short
+    families, NT_SMALL_RANDOM random genes a genome and, last, one
+    random gene of NT_SMALL_LONG nt in the pool genome, titled
+    `long00_...` (outgroup scoring packs it, cut to 4,096; in an ingroup
+    genome its pairs, itself included, would cost the CPU's plain SW
+    tens of seconds).  The clade (00, 01, 02) is the one the default
+    track refines.  Returns (ingroup, pool, generating tree)."""
+    import numpy as np
+    from pepr_tpu_torch.tree import parse_newick
+    rng = np.random.default_rng(seed + 40)
+    g = [f"Synthica_spec{i:02d}_strain_X" for i in range(n_ingroup)]
+    clade = (f"(({g[0]}:0.02,{g[1]}:0.02):{NT_SMALL_CLADE_BRANCH},"
+             f"{g[2]}:0.03)")
+    rest = f"{g[3]}:0.04"
+    for x in g[4:]:
+        rest = f"({rest},{x}:0.03):0.02"
+    return nt_genomes(rng, parse_newick(f"({clade}:0.02,{rest});"),
+                      NT_SMALL_FAMILIES,
+                      NT_SMALL_RANDOM, median_len=NT_SMALL_MEDIAN,
+                      clip=NT_SMALL_CLIP, n_long=0,
+                      long_random=((n_ingroup, NT_SMALL_LONG),))
+
+
+def write_nt_fasta(path: str, sset) -> None:
+    """A genome of ACGT codes as a nucleotide FASTA file, 60 a line."""
+    import numpy as np
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "w") as fh:
+        for title, seq in zip(sset.titles, sset.seqs):
+            s = letters[np.asarray(seq)].tobytes().decode("ascii")
+            fh.write(f">{title}\n")
+            fh.write("".join(s[i:i + 60] + "\n"
+                             for i in range(0, len(s), 60)))
+
+
+class Returns:
+    """Records what `module.<name>` returns while entered (the real
+    function still runs): `Returns(pepr, "run_stage1")` every stage-1
+    run of run_pepr, sub-runs included; `Returns(cli, "run_pepr")` the
+    CLI's run; `Returns(pepr, "run_pepr")` the refinement sub-runs
+    (the CLI calls its own reference to the function)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        self.results = []
+
+        def rec(*a, **kw):
+            out = self.orig(*a, **kw)
+            self.results.append(out)
+            return out
+
+        setattr(self.module, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
+def nt_small_config(cls, out_dir: str):
+    """nt_small's run_pepr configuration (`cls` is PeprConfig, of either
+    package): the default track on the nucleotide alphabet without the
+    HMM (the reference's blastn path), the pool's best genome as the
+    outgroup, fast_ml and NT_SMALL_REPS replicates, refinement at
+    NT_SMALL_REPS (supports are replicate counts)."""
+    cfg = cls.default_track(run_name="nt_small", out_dir=out_dir,
+                            alphabet="nt")
+    cfg.outgroup_count = 1
+    cfg.stage1.use_hmm = False
+    cfg.stage2.full_tree_method = "fast_ml"
+    cfg.stage2.support_reps = NT_SMALL_REPS
+    cfg.refine_cutoff = float(NT_SMALL_REPS)
+    return cfg
+
+
+def nt_small_runs(seed: int, devices, tmp: str) -> tuple:
+    """run_pepr on nt_small_genomes once on each device of `devices`,
+    files in `tmp/<device>`; returns ([{res, stage1 (every run_stage1
+    result, sub-runs included), seconds}], the input's pool, the
+    generating tree)."""
+    import torch
+    from pepr_tpu_torch.pipeline import pepr
+    from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
+    ing, pool, truth = nt_small_genomes(seed)
+    runs = []
+    for d in devices:
+        t = time.time()
+        with Returns(pepr, "run_stage1") as rec:
+            res = run_pepr(nt_small_config(PeprConfig, os.path.join(tmp, d)),
+                           genomes=ing, outgroup_pool=pool, device=d)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        runs.append(dict(res=res, stage1=rec.results,
+                         seconds=round(time.time() - t, 3)))
+    return runs, pool, truth
+
+
+def nt_small_checks(a: dict, b: dict, pool) -> dict:
+    """Two nt_small runs (nt_small_runs) against each other: every
+    run_stage1's groups (titles) and selected outgroups, the final trees'
+    topology (RF 0), the refinement rounds (at least one) and the stage-2
+    LL within FINAL_LL_RTOL; the pool genome selected.  Fails otherwise;
+    returns what it compared."""
+    from pepr_tpu_torch.tree import rf_distance
+    ra, rb = a["res"], b["res"]
+
+    def groups(run):
+        return [[s.titles for s in r.hg_sets] for r in run["stage1"]]
+
+    same_groups = groups(a) == groups(b)
+    outgroups = [[r.selected_outgroups for r in run["stage1"]]
+                 for run in (a, b)]
+    rf = rf_distance(ra.tree, rb.tree)
+    ll_rel = abs(ra.stage2.log_likelihood - rb.stage2.log_likelihood) \
+        / abs(rb.stage2.log_likelihood)
+    out = dict(stage1_runs=[len(a["stage1"]), len(b["stage1"])],
+               groups=[len(r.hg_sets) for r in a["stage1"]],
+               identical_groups=same_groups, outgroups=outgroups,
+               rf=rf, refine_rounds=[ra.refine_rounds, rb.refine_rounds],
+               log_likelihood=[ra.stage2.log_likelihood,
+                               rb.stage2.log_likelihood],
+               ll_rel=ll_rel, model=[ra.stage2.model_name,
+                                     rb.stage2.model_name])
+    if not same_groups or outgroups[0] != outgroups[1]:
+        fail(f"nt_small: the runs' homolog groups or outgroups differ: "
+             f"{out}")
+    if rf != 0 or ra.refine_rounds != rb.refine_rounds \
+            or ra.refine_rounds < 1 or not ll_rel <= FINAL_LL_RTOL:
+        fail(f"nt_small: the runs' trees, refinement rounds or LLs "
+             f"differ: {out}")
+    if ra.selected_outgroups != [pool[0].taxon] \
+            or ra.stage2.model_name != "GTR":
+        fail(f"nt_small: not the pool genome or not GTR: {out}")
+    return out
 
 
 class ScorerRecord:
@@ -1860,7 +2192,9 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     entry of the kernels line and the pepr input (pepr_genomes)."""
     import numpy as np
     import torch
+    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
     from pepr_tpu_torch.ops import hmm_kernel, sw
+    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
     from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
     from pepr_tpu_torch.utils.simulate import simulate_genomes
 
@@ -1894,12 +2228,15 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     torch.cuda.synchronize()
     sw.reset_launch_counts()
     hmm_kernel.reset_launch_counts()
+    reset_align_counts()
+    reset_graph_counts()
     t = time.time()
     with ScorerRecord() as rec:
         res = run_stage1(ingroup, pool, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = dict(sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+    align = dict(ALIGN, **GRAPHS)
     counts = dict(res.counts)
     padded, real = counts.get("hmm_padded_cells", 0), \
         counts.get("hmm_real_cells", 0)
@@ -1911,7 +2248,8 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
           group_size_min_p50_p90_max=[int(sizes.min()), float(
               np.percentile(sizes, 50)), float(np.percentile(sizes, 90)),
               int(sizes.max())] if len(sizes) else [],
-          selected_outgroups=res.selected_outgroups, launches=launches)
+          selected_outgroups=res.selected_outgroups, launches=launches,
+          align=align)
     for k, n in launches.items():
         if n <= 0:
             fail(f"kernel {k} was not launched on the stage1_hmm path")
@@ -1946,7 +2284,9 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
     result, the configuration, the save tally and the wall seconds."""
     import numpy as np
     import torch
+    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
     from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
+    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
     from pepr_tpu_torch.pipeline.checkpoint import CheckpointStore
     from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
     from pepr_tpu_torch.tree import rf_distance
@@ -1966,6 +2306,8 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
     torch.cuda.synchronize()
     for mod in (pruning, sw, hmm_kernel):
         mod.reset_launch_counts()
+    reset_align_counts()
+    reset_graph_counts()
     CheckpointStore.save = timed_save
     t = time.time()
     try:
@@ -1976,6 +2318,7 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
         CheckpointStore.save = save
     wall = time.time() - t
     launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+    align = dict(ALIGN, **GRAPHS)
     files = sorted(os.path.basename(p) for p in res.output_paths.values()
                    if os.path.isfile(p))
     want = sorted([g.taxon for g in h["ingroup"]] + res.selected_outgroups)
@@ -2000,7 +2343,7 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
           newick=res.newick,
           rf_vs_generating_tree=rf_distance(res.tree, h["truth"]),
           log_likelihood=res.stage2.log_likelihood, launches=launches,
-          **checks)
+          align=align, **checks)
     if res.refine_rounds < 1:
         fail("pepr: no refinement round ran")
     missing = [sfx for sfx in PEPR_FILES
@@ -2015,6 +2358,264 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
         if n <= 0:
             fail(f"kernel {k} was not launched on the pepr path")
     return launches, checks, res, cfg, save_stats, round(wall, 3)
+
+
+class SWRecord:
+    """Records the (sequences, pairs_q, pairs_t) of every
+    `models/homology._bucketed_sw` call of the all-vs-all search
+    (`search_all_vs_all`) while it is entered; the real function still
+    runs."""
+
+    def __enter__(self):
+        from pepr_tpu_torch.models import homology
+        self.module, self.orig = homology, homology._bucketed_sw
+        self.calls = []
+
+        def rec(seqs, pairs_q, pairs_t, *a, **kw):
+            seqs_list = seqs if isinstance(seqs, list) else seqs.seqs
+            self.calls.append((seqs_list, pairs_q, pairs_t))
+            return self.orig(seqs, pairs_q, pairs_t, *a, **kw)
+
+        homology._bucketed_sw = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.module._bucketed_sw = self.orig
+        return False
+
+
+def nt_pepr_files(ingroup, pool, root: str) -> tuple:
+    """The genomes as nucleotide FASTA files under `root` (`genomes/`,
+    `pool/`); returns (genome files, pool files)."""
+    dirs = [os.path.join(root, d) for d in ("genomes", "pool")]
+    out = []
+    for d, sets in zip(dirs, (ingroup, pool)):
+        os.makedirs(d, exist_ok=True)
+        out.append([os.path.join(d, f"{g.taxon}.fna") for g in sets])
+        for g, path in zip(sets, out[-1]):
+            write_nt_fasta(path, g)
+    return tuple(out)
+
+
+def nt_pepr_argv(genome_files, pool_files, out_dir: str, ckpt: str,
+                 reps: int = NT_PEPR_REPS) -> list[str]:
+    """The nt_pepr command line: the default track on nucleotides without
+    the HMM, one outgroup from the pool, `reps` jackknife replicates and
+    refinement at `reps` (100% of them), files in `out_dir` and a
+    checkpoint store in `ckpt`."""
+    return ["-genome_file", *genome_files, "-outgroup", *pool_files,
+            "-outgroup_count", "1", "-alphabet", "nt", "-hmm", "false",
+            "-support_reps", str(reps), "-refine_cutoff", str(reps),
+            "-run_name", "smoke_nt", "-out_dir", out_dir,
+            "-checkpoint", ckpt]
+
+
+def nt_sw_checks(call, dev, sm_clock_mhz: float) -> dict:
+    """The SW kernel on the nt_pepr run's own all-vs-all pairs (`call`,
+    recorded by SWRecord) under the nucleotide table and 5/2 gaps: up to
+    SW_CHECK_PAIRS pairs of its dominant bucket and of its largest
+    bucket held against the plain version (all five outputs equal; the
+    plain version once on both, padded to the largest bucket, and
+    timed), and every bucket at the main path's launches,
+    timed beside its bound (`sw_bucket_table`; real cells count at most
+    4,096 residues a side, as packing cuts them)."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.data.nt_scores import (NT_GAP_EXTEND, NT_GAP_OPEN,
+                                               nt_kernel_matrix)
+    from pepr_tpu_torch.models.homology import pack_codes, sw_buckets
+    from pepr_tpu_torch.ops import sw
+    from pepr_tpu_torch.ops.smith_waterman import sw_align_batch
+    seqs, pairs_q, pairs_t = call
+    lens = np.array([len(x) for x in seqs], dtype=np.int64)
+    eff_q, eff_t, buckets = sw_buckets(lens, pairs_q, pairs_t)
+    codes = pack_codes(seqs, device=dev)
+    nsub = sw.integer_sub(nt_kernel_matrix(), dev)
+    gaps = (NT_GAP_OPEN, NT_GAP_EXTEND)
+    dominant = max(buckets, key=lambda k: len(buckets[k]))
+    largest = max(buckets, key=lambda k: (k[0] * k[1], len(buckets[k])))
+    samples = []
+    for key in (dominant, largest):
+        idx = buckets[key]
+        take = idx[np.linspace(0, len(idx) - 1,
+                               min(len(idx), SW_CHECK_PAIRS)).astype(int)]
+        q = codes[torch.as_tensor(eff_q[take], device=dev), :key[0]]
+        t = codes[torch.as_tensor(eff_t[take], device=dev), :key[1]]
+        samples.append((key, len(idx), q, t, sw.sw_align(
+            q.contiguous(), t.contiguous(), nsub, *gaps)))
+    # the plain version once on both samples, padded with PAD to the
+    # widest of them (its outputs do not see PAD tails)
+    q_all, t_all = (torch.cat([torch.nn.functional.pad(
+        x[i], (0, max(y[i].shape[1] for y in samples) - x[i].shape[1]),
+        value=24) for x in samples]) for i in (2, 3))
+    want, plain_ms = timed(lambda: sw_align_batch(q_all, t_all, nsub,
+                                                  *gaps))
+    checked, off = dict(plain_ms=plain_ms), 0
+    for what, (key, n, q, _, got) in zip(("dominant", "largest"), samples):
+        part = {k: v[off:off + len(q)] for k, v in want.items()}
+        off += len(q)
+        err = max(float((got[k].double() - part[k].double()).abs().max())
+                  for k in part)
+        checked[what] = dict(bucket=list(key), pairs=int(n),
+                             checked=int(len(q)), max_abs_err=err,
+                             best_score=float(part["score"].max()))
+        if err != 0:
+            fail(f"nt_pepr: the SW kernel disagrees with its plain version "
+                 f"under the nucleotide table at {key}: {checked[what]}")
+    del samples, q_all, t_all, want
+    table = sw_bucket_table(np.minimum(lens, sw.MAX_LEN), eff_q, eff_t,
+                            buckets, codes, nsub, dev, sm_clock_mhz,
+                            gaps=gaps)
+    over = int((lens > sw.MAX_LEN).sum())
+    del codes
+    torch.cuda.empty_cache()
+    return dict(checked=checked, per_bucket=table,
+                sequences_over_max_len=over)
+
+
+def nt_pepr_phase(seed: int, dev, sm_clock_mhz: float, tmp: str) -> dict:
+    """nt_pepr: nt_pepr_genomes written as FASTA files under `tmp`, then
+    `pepr_tpu_torch.pipeline.cli.main` on them (nt_pepr_argv), timed to
+    a synchronize after it; every kernel's launch count and the MSA and
+    plan-cache tallies are reset just before and read just after.  Fails
+    unless it exits 0, writes every file of PEPR_FILES, its tree's leaves
+    are the ingroup and the selected outgroups, the pool genome is
+    selected, the model is GTR, a refinement round ran, families are
+    recovered as clean groups at RECOVERY_FLOOR, SW and both pruning
+    kernels were launched and the HMM kernel never; then path_checks on
+    its stage-2 result under its GTR model and under a GTR of
+    NT_UNEQUAL_RATES (dead_state_leak at most DEAD_LEAK_TOL in both) and
+    on its first refinement sub-run's full tree, and nt_sw_checks
+    on its all-vs-all pairs.  Returns the launches and path_checks'
+    numbers."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
+    from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
+    from pepr_tpu_torch.ops.likelihood import WagModel
+    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
+    from pepr_tpu_torch.pipeline import cli, pepr
+    from pepr_tpu_torch.pipeline.stage2 import substitution_model
+    from pepr_tpu_torch.tree import rf_distance, to_newick
+    t = time.time()
+    ingroup, pool, truth = nt_pepr_genomes(seed)
+    files, pool_files = nt_pepr_files(ingroup, pool, tmp)
+    lens = np.concatenate([g.lengths() for g in ingroup + pool])
+    data = dict(seconds=round(time.time() - t, 3),
+                genes=[len(g) for g in ingroup + pool],
+                nucleotides=int(lens.sum()),
+                length_p50_p90_p99=[float(x) for x in
+                                    np.percentile(lens, [50, 90, 99])],
+                length_max=int(lens.max()),
+                genes_over_4096=int((lens > 4096).sum()))
+    out_dir = os.path.join(tmp, "out")
+    argv = nt_pepr_argv(files, pool_files, out_dir, os.path.join(tmp, "ckpt"))
+    cfg = cli.config_from_args(argv)
+    torch.cuda.synchronize()
+    for mod in (pruning, sw, hmm_kernel):
+        mod.reset_launch_counts()
+    reset_align_counts()
+    reset_graph_counts()
+    stdout = io.StringIO()
+    t = time.time()
+    with Returns(pepr, "run_stage1") as s1, SWRecord() as swr, \
+            Returns(cli, "run_pepr") as rr, \
+            Returns(pepr, "run_pepr") as subs, \
+            contextlib.redirect_stdout(stdout):
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
+    align = dict(ALIGN, **GRAPHS)
+    if rc != 0 or len(rr.results) != 1:
+        fail(f"nt_pepr: the CLI exited {rc} ({len(rr.results)} runs)")
+    res = rr.results[0]
+    files_out = sorted(os.listdir(out_dir))
+    want = sorted([g.taxon for g in ingroup] + res.selected_outgroups)
+    leaves = sorted(res.tree.leaf_labels())
+    rec, elig = family_recovery(s1.results[0].hg_sets, ingroup)
+    s2 = res.stage2
+    model = substitution_model(s2.model_name, s2.gamma_alpha, s2.concat.mat)
+    unequal = WagModel.gtr_nt(freqs=np.asarray(model.pi[:4], np.float64),
+                              rates=np.asarray(NT_UNEQUAL_RATES),
+                              alpha=s2.gamma_alpha)
+    line = dict(
+        seconds=round(wall, 3), data=data, argv_flags=[
+            a for a in argv if a.startswith("-")],
+        timings={k: round(v, 3) for k, v in res.timings.items()},
+        stage2_timings={k: round(v, 3) for k, v in s2.timings.items()},
+        stage1_runs=[dict(genomes=[g.taxon for g in r.universe.genomes],
+                          timings={k: round(v, 3)
+                                   for k, v in r.timings.items()},
+                          counts=r.counts,
+                          selected_outgroups=r.selected_outgroups)
+                     for r in s1.results],
+        stage1_counts=res.stage1_counts, align=align,
+        families_recovered=rec, families_eligible=elig,
+        families_kept=s2.concat.n_genes, trimmed_columns=s2.concat.length,
+        model_name=s2.model_name, gamma_alpha=s2.gamma_alpha,
+        base_freqs=[float(x) for x in model.pi[:4]],
+        refine_rounds=res.refine_rounds, files=files_out, leaves=leaves,
+        selected_outgroups=res.selected_outgroups,
+        supports=[v for v in res.tree.support if v == v],
+        rf_vs_generating_tree=rf_distance(res.tree, truth),
+        stage2_rf_vs_generating_tree=rf_distance(s2.full_tree, truth),
+        stage2_newick=to_newick(s2.tree),
+        refine_subruns=[dict(taxa=r.stage2.concat.taxa,
+                             families_kept=r.stage2.concat.n_genes,
+                             trimmed_columns=r.stage2.concat.length,
+                             timings={k: round(v, 3)
+                                      for k, v in r.timings.items()},
+                             stage2_timings={
+                                 k: round(v, 3)
+                                 for k, v in r.stage2.timings.items()})
+                        for r in subs.results],
+        log_likelihood=s2.log_likelihood, launches=launches)
+    missing = [sfx for sfx in PEPR_FILES if f"smoke_nt{sfx}" not in files_out]
+    problems = []
+    if missing:
+        problems.append(f"output files missing: {missing}")
+    if leaves != want:
+        problems.append(f"the tree's leaves {leaves} are not {want}")
+    if res.selected_outgroups != [pool[0].taxon]:
+        problems.append(f"outgroups {res.selected_outgroups}, not the pool")
+    if s2.model_name != "GTR":
+        problems.append(f"model {s2.model_name}, not GTR")
+    if res.refine_rounds < 1:
+        problems.append("no refinement round ran")
+    if rec < RECOVERY_FLOOR * elig:
+        problems.append(f"only {rec} of {elig} families recovered")
+    if not np.isfinite(s2.log_likelihood):
+        problems.append("the log-likelihood is not finite")
+    for k, n in launches.items():
+        if (n != 0) if k == "hmm" else (n <= 0):
+            problems.append(f"kernel {k} launched {n} times")
+    if problems:
+        phase("nt_pepr", **line)
+        fail("nt_pepr: " + "; ".join(problems))
+    t = time.time()
+    checks = path_checks(s2, NT_PEPR_REPS, cfg.stage2.seed, dev,
+                         model=model)
+    checks_unequal = path_checks(s2, NT_PEPR_REPS, cfg.stage2.seed, dev,
+                                 model=unequal)
+    sub = subs.results[0].stage2
+    checks_sub = path_checks(sub, 0, cfg.stage2.seed, dev,
+                             model=substitution_model(
+                                 sub.model_name, sub.gamma_alpha,
+                                 sub.concat.mat))
+    sw_checks = nt_sw_checks(swr.calls[0], dev, sm_clock_mhz)
+    phase("nt_pepr", **line, checks_seconds=round(time.time() - t, 3),
+          sw=sw_checks, refine_subrun_1=checks_sub, unequal_gtr=dict(
+              rates=list(NT_UNEQUAL_RATES),
+              dead_state_leak=checks_unequal["dead_state_leak"],
+              final_ll_kernel=checks_unequal["final_ll_kernel"],
+              final_ll_rel=checks_unequal["final_ll_rel"],
+              kernel_shapes=checks_unequal["kernel_shapes"]), **checks)
+    return dict(launches=launches, checks=checks,
+                checks_unequal=checks_unequal, checks_sub=checks_sub,
+                wall=round(wall, 3))
 
 
 def resume_view(store, s1, s2) -> dict:
@@ -3403,6 +4004,18 @@ def main(argv=None) -> int:
     sw_entry, s1 = stage1_phases(args.seed, dev, sm_clock)
     h = hmm_phases(args.seed, dev, sm_clock)
 
+    # -- nt_small: the nucleotide pipeline with refinement, the card
+    # against the CPU
+    import tempfile
+    t = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, nt_pool, _ = nt_small_runs(args.seed, ("cuda", "cpu"), tmp)
+    phase("nt_small", seconds=round(time.time() - t, 3),
+          run_seconds=[r["seconds"] for r in runs],
+          genes=[len(g) for g in nt_small_genomes(args.seed)[0]],
+          **nt_small_checks(*runs, nt_pool))
+    del runs
+
     # -- data
     rng = np.random.default_rng(args.seed)
     taxa = [f"taxon{i:02d}" for i in range(N_TAXA)]
@@ -3569,23 +4182,33 @@ def main(argv=None) -> int:
     finally:
         profile_align.PLAN_CACHE_SHARE = share
     cache.update(evicting_run=dict(GRAPHS))
-    if GRAPHS["evicted"] != 2 * len(dy_inputs) - 1:
-        fail(f"the plan cache evicted {GRAPHS['evicted']} plans, expected "
-             f"{2 * len(dy_inputs) - 1}")
+    # a plan serves a (batch, L1) shape: a call misses when its L1
+    # differs from the last call's, and each miss but the first evicts
+    l1s = [arrs[0].shape[1] for arrs in dy_inputs] * 2
+    misses = 1 + sum(a != b for a, b in zip(l1s, l1s[1:]))
+    if GRAPHS["evicted"] != misses - 1 or GRAPHS["captured"] != 2 * misses:
+        fail(f"the plan cache evicted {GRAPHS['evicted']} plans and "
+             f"captured {GRAPHS['captured']} graphs, expected {misses - 1} "
+             f"and {2 * misses}")
     release_plans()
-    # the step loop at (ALIGN_CHECK_BATCH, 256, 256): an eager run, its
-    # capture as a CUDA graph and a replay, each per DP step
-    plan = _Plan(ALIGN_CHECK_BATCH, 256, 256, dev)
-    plan.steps()  # warm-up
+    # the step loop at (ALIGN_CHECK_BATCH, 256, 256): an eager run, the
+    # capture of its two chunk graphs and a replayed run, each per DP step
+    p1, l1, p2, l2 = (torch.as_tensor(x, device=dev) for x in dy_inputs[-1])
+    plan = _Plan(ALIGN_CHECK_BATCH, 256, dev)
+    call = plan.load(p1, p2, l1.long(), l2.long(), 11.0, 1.0, 0.5,
+                     torch.as_tensor(profile_align.blosum_core(), device=dev))
+    plan.run(call, eager=True)  # warm-up
     step_ms = {}
-    for what, fn in (("eager", plan.steps), ("capture", plan.capture),
-                     ("replay", lambda: plan.graph.replay())):
+    for what, fn, steps in (
+            ("eager", lambda: plan.run(call, eager=True), call.Dp),
+            ("capture", plan.capture, 2 * profile_align.CHUNK),
+            ("replay", lambda: plan.run(call), call.Dp)):
         torch.cuda.synchronize()
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
-        step_ms[what] = 1e3 * (time.time() - t0) / plan.D
-    del plan
+        step_ms[what] = 1e3 * (time.time() - t0) / steps
+    del plan, call
     wave = []
     for (L1, L2), arrs in sorted(last_merge_wave(true_gapped).items()):
         s_c, p_c, s_g, p_g = both(*arrs)
@@ -3685,7 +4308,6 @@ def main(argv=None) -> int:
 
     # -- tools: per-site LLs of competing trees, the AU test, the six
     # CLIs and the tree-builder comparison
-    import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         t_checks = tools_phase(cat, truth, *s2_trees, s1, args.seed, dev,
                                tmp)
@@ -3704,6 +4326,11 @@ def main(argv=None) -> int:
         resume_phase(first, p_cfg, h, tmp, dev, save_stats, p_wall)
         del first
 
+    # -- nt_pepr: the nucleotide pipeline through the CLI, from FASTA
+    # files at real gene lengths, refinement included
+    with tempfile.TemporaryDirectory() as tmp:
+        nt = nt_pepr_phase(args.seed, dev, sm_clock, tmp)
+
     # -- profile: device time by kernel over a shallower stage-2 run
     from torch.profiler import ProfilerActivity, profile
     pcfg = Stage2Config(full_tree_method="fast_ml", support_reps=PROFILE_REPS)
@@ -3719,7 +4346,8 @@ def main(argv=None) -> int:
     # largest over every shape checked
     every = list(shapes.values()) + [
         v for c in (checks, p_checks, o_checks["a"], o_checks["b"],
-                    o_checks["c"], t_checks, *r_checks.values())
+                    o_checks["c"], t_checks, *r_checks.values(),
+                    nt["checks"], nt["checks_unequal"], nt["checks_sub"])
         for v in c["kernel_shapes"].values()]
 
     def entry(k):
@@ -3732,26 +4360,29 @@ def main(argv=None) -> int:
             bound_by=at["bound_by"], shape="full_tree")
 
     # launches: the pepr run's (the reference's default run, the main
-    # path); no PyTorch call computes any of these functions: no library
-    # time
+    # path), and the nt_pepr run's beside them (`launches_nt`: the
+    # nucleotide pipeline through the CLI); no PyTorch call computes any
+    # of these functions: no library time
+    nt_l = nt["launches"]
     kernels = [
         dict(name=k, route="cuda", source="pepr_tpu_torch/csrc/pruning.cu",
-             replaces=rep, launches=p_launches[k], **entry(k),
-             library_ms=None)
+             replaces=rep, launches=p_launches[k], launches_nt=nt_l[k],
+             **entry(k), library_ms=None)
         for k, rep in (
             ("pruning_fwd", "pepr_tpu/ops/pallas_pruning.py:113"),
             ("pruning_bwd", "pepr_tpu/ops/pallas_pruning_grad.py:118"))]
     kernels.append(dict(name="sw", route="cuda",
                         source="pepr_tpu_torch/csrc/sw.cu",
                         replaces="pepr_tpu/ops/pallas_sw.py:64",
-                        **dict(sw_entry, launches=p_launches["sw"]),
+                        **dict(sw_entry, launches=p_launches["sw"],
+                               launches_nt=nt_l["sw"]),
                         library_ms=None))
     kernels.append(dict(name="hmm", route="cuda",
                         source="pepr_tpu_torch/csrc/hmm.cu",
                         replaces="pepr_tpu/ops/hmm.py:206",
                         note="not a TPU kernel (XLA scan in the reference)",
-                        launches=p_launches["hmm"], **h["entry"],
-                        library_ms=None))
+                        launches=p_launches["hmm"], launches_nt=nt_l["hmm"],
+                        **h["entry"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -88,6 +88,23 @@ def test_nw_profile_batch_bit_identical_on_dyadic_profiles(L1, L2, core):
     np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
 
 
+@pytest.mark.parametrize("chunk", [3, 6, 96])
+def test_nw_profile_batch_does_not_depend_on_the_chunk(chunk, monkeypatch):
+    """The step loop in chunks of 3, 6 or 96 diagonals (the last chunk
+    running past the grid, or one chunk holding the whole call) gives
+    the default chunk's scores and pointers bit for bit."""
+    rng = np.random.default_rng(chunk)
+    B, L1, L2 = 5, 64, 128
+    l1 = rng.integers(1, L1 + 1, size=B)
+    l2 = rng.integers(1, L2 + 1, size=B)
+    args = [torch.as_tensor(x) for x in (dyadic(rng, B, L1, l1),
+                                         dyadic(rng, B, L2, l2), l1, l2)]
+    s_d, p_d = tpa.nw_profile_batch(*args)
+    monkeypatch.setattr(tpa, "CHUNK", chunk)
+    s_c, p_c = tpa.nw_profile_batch(*args)
+    assert torch.equal(s_c, s_d) and torch.equal(p_c, p_d)
+
+
 def test_nw_score_matches_numpy_oracle_on_float_profiles():
     rng = np.random.default_rng(4)
     lens = [(17, 40), (39, 5), (60, 61)]
@@ -236,7 +253,7 @@ def test_align_tally_chunked_and_single_family_entry_points(small_families):
 
 def test_plan_cache_evicts_least_recently_used_and_releases():
     cpu = torch.device("cpu")
-    plans = {k: tpa._Plan(2, 64, L2, cpu) for k, L2 in
+    plans = {k: tpa._Plan(2, L1, cpu) for k, L1 in
              (("a", 64), ("b", 128), ("c", 64))}
     size = plans["a"].nbytes
     assert plans["b"].nbytes > size == plans["c"].nbytes
