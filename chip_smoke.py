@@ -60,8 +60,10 @@ Phases, each printing one JSON line with the elapsed seconds:
            pack); the pool genome must be selected; the
            enhancer's prefilter pairs, scored pairs by bucket, padded and
            real DP cells and its sub-phase seconds (alignment, prefilter,
-           scoring) and the MSA and plan-cache tallies (ALIGN, GRAPHS,
-           reset just before) are printed
+           scoring) and the MSA tally (ALIGN: DP calls, the DP kernel's
+           launches, grid cells, pointer bytes, host seconds; reset just
+           before) are printed; the DP kernel's launches must equal the
+           run's DP calls
   hmm_kernel  the HMM kernel against its plain PyTorch version on the
            stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a reference
            (lpad, mpad) bucket, Forward and Viterbi, within HMM_ATOL +
@@ -106,30 +108,36 @@ Phases, each printing one JSON line with the elapsed seconds:
            bit-identical
   small    run_stage2_aligned on a small input on the card and on the
            CPU (plain path): same topology and supports
-  small_align  the profile-profile DP (`nw_profile_batch`) on the card
-           against the CPU on dyadic profiles (values k/4, exact in
-           float32) at the 128 and 256 buckets: identical scores and
-           pointers; release_plans gives back the plans' memory, and with
-           the plan cache's share at 0 every shape evicts the last and the
-           results stay identical; the DP step's time run eagerly,
-           captured as CUDA graphs (a chunk of CHUNK steps, the first
-           and a later one) and replayed; on the last merge wave
-           of the stage-2 input's true alignments (each family's rows
-           split in two halves) the pointers and scores that differ are
-           counted; and
-           run_stage2 on seeded 3-sequence families over 6 taxa, card
-           against CPU: identical alignments, topology and supports
+  small_align  the profile-profile DP: its kernel (csrc/profile_dp.cu)
+           against its plain version (the step loop) on the card, on the
+           same column scores, at every shape below: the scores' bits and
+           every grid pointer must be equal (0 differences), each shape's
+           kernel time beside its bound and the plain version's time (per
+           call and per DP step); the shapes: dyadic profiles (values
+           k/4, exact in float32) at the 128 and 256 buckets, random
+           float profiles at (256, 512) and (512, 256) with lengths well
+           below the buckets, a nucleotide batch of ALIGN_NT_BATCH pairs
+           at 8,192 x 8,192 (ALIGN_NT_LENGTH columns), and the last merge
+           wave of the stage-2 input's true alignments (each family's rows
+           split in two halves); then the card against the CPU: the
+           dyadic profiles identical (scores and grid pointers), on the
+           last merge wave the grid pointers and scores that differ
+           counted (float profiles: the card's and the CPU's products
+           round apart), and run_stage2 on seeded 3-sequence families
+           over 6 taxa: identical alignments, topology and supports (the
+           card run's MSA tally printed, one DP launch a DP call)
   stage2   run_stage2 at full width, the `ml` full tree and STAGE2_REPS
            jackknife replicates (cut from the default 100 for time)
            from the 405 families unaligned, each sequence with 0-3 seeded
            deletions of 1-8 residues: filter, progressive MSA, one
            refinement pass, Gblocks trim, then the tree stage; launch
-           counts, the MSA tally (DP calls and steps, pointer bytes,
-           host seconds in tracebacks and merges, CUDA graphs captured
-           and evicted) and the wrapper's planning tally (plans made, host
-           seconds copying `children` and planning) are reset just before
-           and read just after; the run must have made an SPR sweep and
-           released the DP's plans; then path_checks: the final tree's LL
+           counts, the MSA tally (DP calls, the DP kernel's launches,
+           DP steps, grid cells, pointer bytes, host seconds in
+           tracebacks and merges) and the wrapper's planning tally (plans
+           made, host seconds copying `children` and planning) are reset
+           just before and read just after; the run must have made an SPR
+           sweep, and launched the DP kernel once a DP call; then
+           path_checks: the final tree's LL
            by the kernel within 1e-5 of the plain path, and both kernels
            against their plain versions at the run's own shapes (its full
            tree over the trimmed columns, its first block of jackknife
@@ -164,7 +172,7 @@ Phases, each printing one JSON line with the elapsed seconds:
            185,239 columns; ery, 528 Erysipelotrichi families, 154,086),
            each through run_stage2_aligned at full width under the JAX
            run's stage-2 configuration (ml, seed 12345), with
-           REAL_RUNS' replicates (aqu one block of 64, ery none), the
+           REAL_RUNS' replicates (one block of 64 each), the
            pruning launch counts reset just before and read just after;
            then real_data_compare against the JAX run: the Gamma shapes
            (within REAL_ALPHA_ATOL), the RF of the full trees over all
@@ -242,8 +250,9 @@ Phases, each printing one JSON line with the elapsed seconds:
            writing; then path_checks on its stage-2 result, as in
            stage2 (stage 1's groups to a tree over the 12 genomes; the
            full tree's gradient also against a float64 plain gradient,
-           both float32 sides' errors printed); the MSA and plan-cache
-           tallies (ALIGN, GRAPHS, reset just before) are printed
+           both float32 sides' errors printed); the MSA tally (ALIGN,
+           reset just before) is printed, and the DP kernel's launches
+           must equal the run's DP calls
   resume   (a) the pepr run's store: files and bytes of the store and
            of each refinement sub-store, the seconds and number of saves,
            and the pepr wall beside it; (b) run_pepr again, the same
@@ -269,8 +278,9 @@ Phases, each printing one JSON line with the elapsed seconds:
            pepr_tpu_torch.pipeline.cli.main with -alphabet nt -hmm false
            -support_reps NT_PEPR_REPS -refine_cutoff NT_PEPR_REPS and a
            checkpoint store (nt_pepr_argv); every launch count and the
-           MSA and plan-cache tallies reset just before and read just
-           after; it must exit 0, write every file of PEPR_FILES, put
+           MSA tally reset just before and read just after; it must exit
+           0, launch the DP kernel once a DP call, write every file of
+           PEPR_FILES, put
            the ingroup and the selected outgroups at the leaves, select
            the pool genome, use GTR, refine once or more, recover
            families at RECOVERY_FLOOR, and launch SW and both pruning
@@ -286,7 +296,8 @@ Phases, each printing one JSON line with the elapsed seconds:
            fast_ml, PROFILE_REPS replicates), so the stage2 time above
            carries no profiler overhead
 Then one JSON line with every kernel's numbers (launches from the pepr
-run, and from the nt_pepr run as launches_nt), the nvidia-smi line, and
+run, and from the nt_pepr run as launches_nt; the profile DP's entry at
+small_align's nucleotide batch), the nvidia-smi line, and
 the result line.  Any failure ends the
 run with a non-zero exit; without a CUDA device it exits 2 and prints no
 result.
@@ -325,11 +336,12 @@ S1_POOL = 1
 S1_FAMILIES = 1300
 S1_RANDOM = 100
 # profile_stage1's ingroup genomes: all 11 until the stage2_options
-# phase came, 4 until the nt phases came
-PROFILE_S1_INGROUP = 2
+# phase came, 2 while the nt phases' profile DP ran as CUDA graph replays
+PROFILE_S1_INGROUP = 4
 # pairs per bucket held against the plain version: 256 until the
-# distributed phase came, 128 until the nt phases came
-SW_CHECK_PAIRS = 64
+# distributed phase came, 64 while the nt phases' profile DP ran as CUDA
+# graph replays
+SW_CHECK_PAIRS = 128
 # the same for the HMM kernel (hmm_kernel): 512 until the distributed
 # phase came (256 pairs take as long as 128: the plain version's time
 # follows a pack's steps)
@@ -344,9 +356,9 @@ KERNEL_TREES = 4
 SUPPORT_REPS = 100  # the pipeline's default (the kernels phase's block)
 # the stage2 phase's replicates: cut from the default 100 to keep the
 # script within its 600 s once the pepr phase came (100 took 605.5 s
-# on one run), from 50 to 16 when the stage2_options phase came, and to
-# 8 when the nt phases came
-STAGE2_REPS = 8
+# on one run), from 50 to 16 when the stage2_options phase came (8
+# while the nt phases' profile DP ran as CUDA graph replays)
+STAGE2_REPS = 16
 # the profile phase's replicates: 8 until the stage2_options phase came
 PROFILE_REPS = 4
 # stage2_options: A's nj replicates and B's bootstrap replicates, the
@@ -355,7 +367,7 @@ PROFILE_REPS = 4
 OPTION_REPS = 16
 OPTION_CLADES = 4
 OPTION_MAX_CANDIDATES = 64
-NT_FAMILIES = 40  # 80 until the nt phases came
+NT_FAMILIES = 80  # 40 while the nt phases' DP ran as CUDA graph replays
 NT_LENGTH = (300, 750)
 NT_REPS = 8
 # int32 operations of one Fitch child combine in the algorithm: the
@@ -368,6 +380,15 @@ MAX_TREE_SITES = 256
 DELETIONS = (0, 3)
 DELETION_LEN = (1, 8)
 ALIGN_CHECK_BATCH = 32  # profile pairs per bucket in small_align
+# small_align's nucleotide batch: pairs and profile lengths in the
+# 8,192 bucket (nt_pepr's long families, 6,300-7,800 nt, and the gaps
+# their profiles gather)
+ALIGN_NT_BATCH = 8
+ALIGN_NT_LENGTH = (6300, 8192)
+# float32 operations of one profile-DP grid cell in the algorithm: E and
+# F two subtractions, a max and a compare each, M an add, H two maxima,
+# the state two compares
+DP_OPS_PER_CELL = 13
 PLAIN_SPR_TREES = 32  # SPR candidates of the batch held against the plain
 # version (one every SCORE_BATCH / PLAIN_SPR_TREES)
 PLAIN_REP_TREES = 8  # replicates of a path's block held against the plain
@@ -397,7 +418,7 @@ SITELH_TOL = 1e-6
 # columns; ery, 12 Erysipelotrichi taxa x 154,086), each through
 # run_stage2_aligned at full width under the JAX run's stage-2
 # configuration; the jackknife replicates each run makes (the JAX run
-# made 100: aqu one block, ery none, for time); the shortest JAX branch
+# made 100: one block each, for time); the shortest JAX branch
 # whose split the port's tree must keep unless it scores at least as
 # high under the port's likelihood (aqu's Hydrogenobaculum splits are
 # 6e-8 to 3e-5 long); how far the Gamma shape may be from the JAX run's,
@@ -405,10 +426,10 @@ SITELH_TOL = 1e-6
 # bf16x3 on another device).  Two H100 runs read both shapes equal to
 # the digit and LLs 2.2e-6 (aqu) and 1.6e-6 (ery) below the JAX run's;
 # the replicates must be the JAX run's topologies with its supports
-# (both runs: 64 of 64, support difference 0)
+# (aqu in both runs: 64 of 64, support difference 0)
 REALDATA = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "realdata")
-REAL_RUNS = (("aqu", 64), ("ery", 0))
+REAL_RUNS = (("aqu", 64), ("ery", 64))
 REAL_SPLIT_MIN = 1e-4
 REAL_ALPHA_ATOL = 1e-4
 REAL_LL_RTOL = 1e-5
@@ -431,18 +452,20 @@ CUTS = [f"stage2 support_reps {SUPPORT_REPS} -> 50 (the pepr phase)",
         "phase)",
         "hmm_kernel plain check pairs a bucket 512 -> 256 (the same)",
         f"real_data support_reps {SUPPORT_REPS} -> {dict(REAL_RUNS)['aqu']} "
-        f"(aqu) and -> {dict(REAL_RUNS)['ery']} (ery) (the real_data phase)"]
+        f"(aqu) and -> {dict(REAL_RUNS)['ery']} (ery) (the real_data phase; "
+        "ery's were 0 until the profile DP kernel came)"]
 # distributed: the ranks that share the card in (b)-(d), the replicates
 # and Adam steps of the fits of (a) and (b) (STAGE2_REPS jackknife masks,
 # the support path's steps), the small support input of (c) (taxa,
 # families, replicates) and the tolerances against one rank: totals
 # (site slices summed in another order), and the fits' lengths and LLs
 # (those of tests/test_torch_support.py::test_replicate_blopt_matches_sharded);
-# the steps were the support path's 60 until the nt phases came (the
-# gates compare ranks with one rank, not with convergence)
+# the steps are the support path's 60 (30 while the nt phases' profile
+# DP ran as CUDA graph replays; the gates compare ranks with one rank,
+# not with convergence)
 DIST_RANKS = 4
 DIST_REPS = STAGE2_REPS
-DIST_STEPS = 30
+DIST_STEPS = 60
 DIST_SMALL = dict(taxa=12, families=8, reps=8)
 DIST_LL_RTOL = 1e-6
 DIST_BLEN_RTOL = 1e-3
@@ -546,16 +569,7 @@ NT_SMALL_REPS = 4
 # the cuts made when the nt phases came
 CUTS += [f"nt_pepr families 1300 -> {NT_PEPR_FAMILIES} and random genes "
          f"100 -> {NT_PEPR_RANDOM} a genome, support_reps 100 -> "
-         f"{NT_PEPR_REPS} (the nt_pepr phase)",
-         f"distributed Adam steps 60 -> {DIST_STEPS} (the nt phases)",
-         f"stage2 support_reps 16 -> {STAGE2_REPS}, so distributed "
-         f"replicates 16 -> {DIST_REPS} (the same)",
-         f"sw_kernel plain check pairs a bucket 128 -> {SW_CHECK_PAIRS}, "
-         "nt_pepr's the same (the same)",
-         f"stage2_options C nucleotide families 80 -> {NT_FAMILIES} (the "
-         "same)",
-         f"profile_stage1 ingroup 4 -> {PROFILE_S1_INGROUP} genomes (the "
-         "same)"]
+         f"{NT_PEPR_REPS} (the nt_pepr phase)"]
 
 
 def phase(label: str, **info) -> None:
@@ -910,6 +924,100 @@ def dyadic_profiles(rng, B: int, L: int):
     return p, lens
 
 
+def float_profiles(rng, B: int, L: int):
+    """(B, L, 20) float32 profiles of random frequency columns (a column's
+    mass a random share of 1, the rest gaps), zero past random lengths
+    in [L/4, L/2); and the (B,) lengths."""
+    import numpy as np
+    lens = rng.integers(L // 4, L // 2, size=B).astype(np.int32)
+    p = np.zeros((B, L, 20), np.float32)
+    for b, n in enumerate(lens):
+        x = rng.random((n, 20))
+        x *= rng.uniform(0.25, 1.0, size=(n, 1)) / x.sum(axis=1,
+                                                         keepdims=True)
+        p[b, :n] = x
+    return p, lens
+
+
+def nt_profile_pairs(rng, B: int, L: int, lengths=ALIGN_NT_LENGTH):
+    """B pairs of nucleotide profiles of four rows (values k/4) padded to
+    L: each pair's two profiles from one random ACGT ancestor of a length
+    in `lengths` (at most L), every row with 15% of its sites drawn anew
+    and each profile with 5% of its columns deleted; (p1, l1, p2, l2)."""
+    import numpy as np
+    from pepr_tpu_torch.models.msa import _pad_profiles
+
+    def profile(anc):
+        rows = np.where(rng.random((4, len(anc))) < 0.15,
+                        rng.integers(0, 4, size=(4, len(anc))), anc)
+        rows = rows[:, rng.random(len(anc)) >= 0.05]
+        p = np.zeros((rows.shape[1], 20), np.float32)
+        for r in rows:
+            p[np.arange(rows.shape[1]), r] += 0.25
+        return p
+
+    pairs = []
+    for _ in range(B):
+        anc = rng.integers(0, 4, size=int(rng.integers(lengths[0],
+                                                       lengths[1] + 1)))
+        pairs.append((profile(anc), profile(anc)))
+    return (*_pad_profiles([a for a, _ in pairs], L),
+            *_pad_profiles([b for _, b in pairs], L))
+
+
+def dp_bound(l1, l2) -> tuple[float, str]:
+    """Least time (ms) the card could take for the profile DP of pairs of
+    these lengths, and what sets it: each grid cell with i, j >= 1 reads
+    its 4-byte column score and each grid cell writes its pointer byte,
+    each pair reads two int32 lengths and writes a float32 score;
+    DP_OPS_PER_CELL float32 operations a grid cell."""
+    import numpy as np
+    l1 = np.asarray(l1, np.int64)
+    l2 = np.asarray(l2, np.int64)
+    cells = int(((l1 + 1) * (l2 + 1)).sum())
+    n_bytes = 4 * int((l1 * l2).sum()) + cells + 12 * len(l1)
+    t_ops = DP_OPS_PER_CELL * cells / PEAK_F32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def dp_check(kind: str, p1, l1, p2, l2, dev, core=None, gaps=(11.0, 1.0),
+             reps: int = 5) -> dict:
+    """The profile DP kernel against its plain version on the card, on
+    one batch's column scores (`column_scores`, made once): the scores'
+    bits and every grid pointer compared (the caller fails on a
+    difference), the kernel's median time over `reps` launches beside
+    dp_bound, and the plain version timed once, per call and per DP step
+    (its diagonals, whole chunks)."""
+    import numpy as np
+    import torch
+    from pepr_tpu_torch.ops import profile_align as pa
+    core_t = torch.as_tensor(pa.blosum_core() if core is None else core,
+                             dtype=torch.float32, device=dev)
+    s = pa.column_scores(torch.as_tensor(p1, device=dev),
+                         torch.as_tensor(p2, device=dev), core_t)
+    n1, n2 = (torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
+              for x in (l1, l2))
+    costs = pa.gap_costs(gaps[0], gaps[1], 0.5)
+    s_k, p_k = pa.profile_dp(s, n1, n2, *costs)
+    ms = time_ms(lambda: pa.profile_dp(s, n1, n2, *costs), reps)
+    (s_p, p_p), plain_ms = timed(
+        lambda: pa.profile_dp_plain(s, n1, n2, *costs))
+    B, L1, L2 = s.shape
+    grid = pa.on_grid(l1, l2, L1, L2, dev)
+    bound, by = dp_bound(l1, l2)
+    steps = -(-(L1 + L2 + 1) // pa.CHUNK) * pa.CHUNK
+    return dict(kind=kind, shape=[B, L1, L2], cells=pa.grid_cells(l1, l2),
+                pointers=int(grid.sum()),
+                pointers_differ=int(((p_k != p_p) & grid).sum()),
+                scores_differ=int((s_k.view(torch.int32)
+                                   != s_p.view(torch.int32)).sum()),
+                max_abs_err=float((s_k - s_p).abs().max()), ms=ms,
+                bound_ms=bound, bound_by=by, plain_ms=plain_ms,
+                plain_step_ms=plain_ms / steps)
+
+
 def last_merge_wave(true_alns):
     """The last merge of each family's true alignment, as one wave: each
     family's rows split in two halves, columns all-gap in a half
@@ -973,6 +1081,32 @@ def timed(fn):
     b.record()
     torch.cuda.synchronize()
     return out, a.elapsed_time(b)
+
+
+def reset_align() -> None:
+    """Zero the MSA tally and the DP kernel's launch count (just before
+    a run; `align_tally` reads them just after)."""
+    from pepr_tpu_torch.models.msa import reset_align_counts
+    from pepr_tpu_torch.ops import profile_align
+    reset_align_counts()
+    profile_align.reset_launch_counts()
+
+
+def align_tally(where: str, dev="cuda") -> dict:
+    """The MSA tally of the run since `reset_align` (models/msa.ALIGN);
+    fails unless the DP kernel was launched once a DP call on the card
+    (never on the CPU, where the tests rehearse a phase)."""
+    import torch
+    from pepr_tpu_torch.models.msa import ALIGN
+    from pepr_tpu_torch.ops import profile_align
+    align = dict(ALIGN)
+    n = profile_align.LAUNCHES["profile_dp"]
+    want = align["calls"] if torch.device(dev).type == "cuda" else 0
+    if not n == align["launches"] == want:
+        fail(f"{where}: the profile DP kernel made {n} launches "
+             f"({align['launches']} in the MSA tally) for {align['calls']} "
+             f"DP calls on {dev}")
+    return align
 
 
 def launch_facts(kernel: str) -> dict:
@@ -2192,9 +2326,7 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     entry of the kernels line and the pepr input (pepr_genomes)."""
     import numpy as np
     import torch
-    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
-    from pepr_tpu_torch.ops import hmm_kernel, sw
-    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
+    from pepr_tpu_torch.ops import hmm_kernel, profile_align, sw
     from pepr_tpu_torch.pipeline.stage1 import Stage1Config, run_stage1
     from pepr_tpu_torch.utils.simulate import simulate_genomes
 
@@ -2228,15 +2360,15 @@ def hmm_phases(seed: int, dev, sm_clock_mhz: float) -> dict:
     torch.cuda.synchronize()
     sw.reset_launch_counts()
     hmm_kernel.reset_launch_counts()
-    reset_align_counts()
-    reset_graph_counts()
+    reset_align()
     t = time.time()
     with ScorerRecord() as rec:
         res = run_stage1(ingroup, pool, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = dict(sw.LAUNCHES, **hmm_kernel.LAUNCHES)
-    align = dict(ALIGN, **GRAPHS)
+    launches = dict(sw.LAUNCHES, **hmm_kernel.LAUNCHES,
+                    **profile_align.LAUNCHES)
+    align = align_tally("stage1_hmm")
     counts = dict(res.counts)
     padded, real = counts.get("hmm_padded_cells", 0), \
         counts.get("hmm_real_cells", 0)
@@ -2284,9 +2416,7 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
     result, the configuration, the save tally and the wall seconds."""
     import numpy as np
     import torch
-    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
-    from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
-    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
+    from pepr_tpu_torch.ops import hmm_kernel, profile_align, pruning, sw
     from pepr_tpu_torch.pipeline.checkpoint import CheckpointStore
     from pepr_tpu_torch.pipeline.pepr import PeprConfig, run_pepr
     from pepr_tpu_torch.tree import rf_distance
@@ -2306,8 +2436,7 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
     torch.cuda.synchronize()
     for mod in (pruning, sw, hmm_kernel):
         mod.reset_launch_counts()
-    reset_align_counts()
-    reset_graph_counts()
+    reset_align()
     CheckpointStore.save = timed_save
     t = time.time()
     try:
@@ -2317,8 +2446,9 @@ def pepr_phase(h: dict, dev, sm_clock_mhz: float, tmp: str):
     finally:
         CheckpointStore.save = save
     wall = time.time() - t
-    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
-    align = dict(ALIGN, **GRAPHS)
+    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES,
+                    **profile_align.LAUNCHES)
+    align = align_tally("pepr")
     files = sorted(os.path.basename(p) for p in res.output_paths.values()
                    if os.path.isfile(p))
     want = sorted([g.taxon for g in h["ingroup"]] + res.selected_outgroups)
@@ -2492,10 +2622,8 @@ def nt_pepr_phase(seed: int, dev, sm_clock_mhz: float, tmp: str) -> dict:
     import io
     import numpy as np
     import torch
-    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
-    from pepr_tpu_torch.ops import hmm_kernel, pruning, sw
+    from pepr_tpu_torch.ops import hmm_kernel, profile_align, pruning, sw
     from pepr_tpu_torch.ops.likelihood import WagModel
-    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
     from pepr_tpu_torch.pipeline import cli, pepr
     from pepr_tpu_torch.pipeline.stage2 import substitution_model
     from pepr_tpu_torch.tree import rf_distance, to_newick
@@ -2516,8 +2644,7 @@ def nt_pepr_phase(seed: int, dev, sm_clock_mhz: float, tmp: str) -> dict:
     torch.cuda.synchronize()
     for mod in (pruning, sw, hmm_kernel):
         mod.reset_launch_counts()
-    reset_align_counts()
-    reset_graph_counts()
+    reset_align()
     stdout = io.StringIO()
     t = time.time()
     with Returns(pepr, "run_stage1") as s1, SWRecord() as swr, \
@@ -2527,8 +2654,9 @@ def nt_pepr_phase(seed: int, dev, sm_clock_mhz: float, tmp: str) -> dict:
         rc = cli.main(argv)
         torch.cuda.synchronize()
     wall = time.time() - t
-    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES)
-    align = dict(ALIGN, **GRAPHS)
+    launches = dict(pruning.LAUNCHES, **sw.LAUNCHES, **hmm_kernel.LAUNCHES,
+                    **profile_align.LAUNCHES)
+    align = align_tally("nt_pepr")
     if rc != 0 or len(rr.results) != 1:
         fail(f"nt_pepr: the CLI exited {rc} ({len(rr.results)} runs)")
     res = rr.results[0]
@@ -2816,11 +2944,9 @@ def option_runs(alignments, nt_sets, truth, dev, reps: int, nt_reps: int,
     import numpy as np
     import torch
     from pepr_tpu_torch.data.protein_models import model_names
-    from pepr_tpu_torch.models.msa import ALIGN, reset_align_counts
     from pepr_tpu_torch.models.support import support_trees
     from pepr_tpu_torch.models.treebuild import ml_tree, nj_tree
     from pepr_tpu_torch.ops import parsimony
-    from pepr_tpu_torch.ops.profile_align import GRAPHS, reset_graph_counts
     from pepr_tpu_torch.pipeline.stage2 import (Stage2Config, run_stage2,
                                                 run_stage2_aligned,
                                                 substitution_model)
@@ -2939,13 +3065,12 @@ def option_runs(alignments, nt_sets, truth, dev, reps: int, nt_reps: int,
         cfg_c = Stage2Config(alphabet="nt", full_tree_method="fast_ml",
                              support_reps=nt_reps)
         sync()
-        reset_align_counts()
-        reset_graph_counts()
+        reset_align()
         t = time.time()
         res_c = run_stage2(nt_sets, cfg_c, device=dev)
         sync()
         wall_c = time.time() - t
-        align_c = dict(ALIGN, **GRAPHS)
+        align_c = align_tally("stage2_options C", dev)
         model_c = substitution_model(res_c.model_name, res_c.gamma_alpha,
                                      res_c.concat.mat)
         c = dict(seconds=round(wall_c, 3),
@@ -3889,8 +4014,9 @@ def real_data_phase(dev) -> dict:
     from pepr_tpu_torch.ops import pruning
     from pepr_tpu_torch.parallel.replicates import BLOCK_REPS
     from pepr_tpu_torch.pipeline.stage2 import run_stage2_aligned
-    if dict(REAL_RUNS)["aqu"] != BLOCK_REPS:
-        fail(f"real_data's aqu replicates are not one block ({BLOCK_REPS})")
+    if any(reps != BLOCK_REPS for _, reps in REAL_RUNS):
+        fail(f"real_data's replicates are not one block ({BLOCK_REPS}) a "
+             f"run: {REAL_RUNS}")
     t0 = time.time()
     runs, checks = {}, {}
     for run, reps in REAL_RUNS:
@@ -3941,8 +4067,7 @@ def main(argv=None) -> int:
     from pepr_tpu_torch import native
     from pepr_tpu_torch.device import resolve_device
     from pepr_tpu_torch.models.concat import concatenate
-    from pepr_tpu_torch.models.msa import (ALIGN, Alignment,
-                                           reset_align_counts)
+    from pepr_tpu_torch.models.msa import Alignment
     from pepr_tpu_torch.models.support import jackknife_gene_masks
     from pepr_tpu_torch.models.treebuild import (SCORE_BATCH, _postorder_fix,
                                                  _remap_blen, _spr_candidates)
@@ -3950,10 +4075,9 @@ def main(argv=None) -> int:
                                     pruning, sw)
     from pepr_tpu_torch.ops.likelihood import (WagModel, transition_matrices,
                                                tree_to_arrays)
-    from pepr_tpu_torch.ops.profile_align import (GRAPHS, _Plan,
-                                                  nw_profile_batch,
-                                                  release_plans,
-                                                  reset_graph_counts)
+    from pepr_tpu_torch.data.nt_scores import (NT_GAP_EXTEND, NT_GAP_OPEN,
+                                               nt_core)
+    from pepr_tpu_torch.ops.profile_align import nw_profile_batch
     from pepr_tpu_torch.parallel.replicates import BLOCK_REPS, replicate_codes
     from pepr_tpu_torch.pipeline.stage2 import (Stage2Config, run_stage2,
                                                 run_stage2_aligned)
@@ -3984,6 +4108,7 @@ def main(argv=None) -> int:
     pruning.library()
     sw.library()
     hmm_kernel.library()
+    profile_align.library()
     cuda_s = time.time() - t
     t = time.time()
     native.build(force=True)
@@ -4135,88 +4260,59 @@ def main(argv=None) -> int:
     if s_rf != 0 or s_sup != c_sup or not s_rel <= 1e-4:
         fail("small stage-2 run on the card disagrees with the CPU's")
 
-    # -- small_align: the profile-profile DP on the card against the CPU
+    # -- small_align: the profile DP's kernel against its plain version
+    # on the card, then the card against the CPU
     t = time.time()
     arng = np.random.default_rng(args.seed + 3)
-
-    def both(p1, l1, p2, l2):
-        host = [torch.as_tensor(x) for x in (p1, p2, l1, l2)]
-        s_c, p_c = nw_profile_batch(*host)
-        s_g, p_g = nw_profile_batch(*(x.to(dev) for x in host))
-        return s_c, p_c, s_g.cpu(), p_g.cpu()
-
-    dyadic, dy_inputs = [], []
+    dp_rows, dy_inputs = [], []
     for L1, L2 in ((128, 128), (128, 256), (256, 256)):
         dy_inputs.append((*dyadic_profiles(arng, ALIGN_CHECK_BATCH, L1),
                           *dyadic_profiles(arng, ALIGN_CHECK_BATCH, L2)))
-        s_c, p_c, s_g, p_g = both(*dy_inputs[-1])
-        same = torch.equal(s_g, s_c) and torch.equal(p_g, p_c)
-        dyadic.append([L1, L2, ALIGN_CHECK_BATCH, same])
+        dp_rows.append(dp_check("dyadic", *dy_inputs[-1], dev))
+    for L1, L2 in ((256, 512), (512, 256)):
+        dp_rows.append(dp_check(
+            "float", *float_profiles(arng, ALIGN_CHECK_BATCH, L1),
+            *float_profiles(arng, ALIGN_CHECK_BATCH, L2), dev))
+    nt_dp = dp_check("nucleotide", *nt_profile_pairs(
+        arng, ALIGN_NT_BATCH, 8192), dev, core=nt_core(),
+        gaps=(float(NT_GAP_OPEN), float(NT_GAP_EXTEND)), reps=3)
+    dp_rows.append(nt_dp)
+    wave_in = sorted(last_merge_wave(true_gapped).items())
+    for _, arrs in wave_in:
+        dp_rows.append(dp_check("last_wave", *arrs, dev))
+    for r in dp_rows:
+        if r["pointers_differ"] or r["scores_differ"]:
+            fail(f"the profile DP kernel disagrees with its plain version: "
+                 f"{r}")
+
+    def both(p1, l1, p2, l2):
+        """nw_profile_batch on the CPU and on the card, and the grid."""
+        host = [torch.as_tensor(x) for x in (p1, p2, l1, l2)]
+        s_c, p_c = nw_profile_batch(*host)
+        s_g, p_g = nw_profile_batch(*(x.to(dev) for x in host))
+        grid = profile_align.on_grid(l1, l2, p1.shape[1],
+                                     p2.shape[1]).permute(1, 0, 2)
+        return s_c, p_c, s_g.cpu(), p_g.cpu(), grid
+
+    dyadic = []
+    for arrs in dy_inputs:
+        s_c, p_c, s_g, p_g, grid = both(*arrs)
+        same = torch.equal(s_g, s_c) and torch.equal(p_g[grid], p_c[grid])
+        dyadic.append([arrs[0].shape[1], arrs[2].shape[1],
+                       ALIGN_CHECK_BATCH, same])
         if not same:
             fail(f"nw_profile_batch on the card disagrees with the CPU on "
-                 f"dyadic profiles at ({L1}, {L2})")
-    # the plan cache: release_plans gives back the memory its plans'
-    # buffers hold; then, with the cache's share at 0, every new shape
-    # evicts the cached plan (while its call may still be queued) and is
-    # captured again when it returns, with results still identical
-    cached = list(profile_align._PLANS.values())
-    cache = dict(plans=len(cached),
-                 buffer_bytes=sum(p.nbytes - p.pool_bytes for p in cached),
-                 graph_pool_bytes=sum(p.pool_bytes for p in cached))
-    del cached
-    allocated = torch.cuda.memory_allocated(dev)
-    release_plans()
-    cache["freed_bytes"] = allocated - torch.cuda.memory_allocated(dev)
-    if profile_align._PLANS or cache["freed_bytes"] < cache["buffer_bytes"]:
-        fail(f"release_plans did not give back the plans' memory: {cache}")
-    share = profile_align.PLAN_CACHE_SHARE
-    profile_align.PLAN_CACHE_SHARE = 0.0
-    reset_graph_counts()
-    try:
-        for _ in range(2):
-            for arrs in dy_inputs:
-                s_c, p_c, s_g, p_g = both(*arrs)
-                if not (torch.equal(s_g, s_c) and torch.equal(p_g, p_c)):
-                    fail("nw_profile_batch disagrees with the CPU when its "
-                         "plans are evicted between calls")
-    finally:
-        profile_align.PLAN_CACHE_SHARE = share
-    cache.update(evicting_run=dict(GRAPHS))
-    # a plan serves a (batch, L1) shape: a call misses when its L1
-    # differs from the last call's, and each miss but the first evicts
-    l1s = [arrs[0].shape[1] for arrs in dy_inputs] * 2
-    misses = 1 + sum(a != b for a, b in zip(l1s, l1s[1:]))
-    if GRAPHS["evicted"] != misses - 1 or GRAPHS["captured"] != 2 * misses:
-        fail(f"the plan cache evicted {GRAPHS['evicted']} plans and "
-             f"captured {GRAPHS['captured']} graphs, expected {misses - 1} "
-             f"and {2 * misses}")
-    release_plans()
-    # the step loop at (ALIGN_CHECK_BATCH, 256, 256): an eager run, the
-    # capture of its two chunk graphs and a replayed run, each per DP step
-    p1, l1, p2, l2 = (torch.as_tensor(x, device=dev) for x in dy_inputs[-1])
-    plan = _Plan(ALIGN_CHECK_BATCH, 256, dev)
-    call = plan.load(p1, p2, l1.long(), l2.long(), 11.0, 1.0, 0.5,
-                     torch.as_tensor(profile_align.blosum_core(), device=dev))
-    plan.run(call, eager=True)  # warm-up
-    step_ms = {}
-    for what, fn, steps in (
-            ("eager", lambda: plan.run(call, eager=True), call.Dp),
-            ("capture", plan.capture, 2 * profile_align.CHUNK),
-            ("replay", lambda: plan.run(call), call.Dp)):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        step_ms[what] = 1e3 * (time.time() - t0) / steps
-    del plan, call
+                 f"dyadic profiles at {dyadic[-1][:2]}")
     wave = []
-    for (L1, L2), arrs in sorted(last_merge_wave(true_gapped).items()):
-        s_c, p_c, s_g, p_g = both(*arrs)
-        wave.append([L1, L2, len(s_c), int((p_g != p_c).sum()), p_c.numel(),
-                     int((s_g != s_c).sum()),
+    for (L1, L2), arrs in wave_in:
+        s_c, p_c, s_g, p_g, grid = both(*arrs)
+        wave.append([L1, L2, len(s_c), int((p_g != p_c)[grid].sum()),
+                     int(grid.sum()), int((s_g != s_c).sum()),
                      float((s_g - s_c).abs().max())])
     small_sets = three_sequence_sets(np.random.default_rng(args.seed + 4))
+    reset_align()
     on_gpu = run_stage2(small_sets, Stage2Config(**SMALL_S2), device="cuda")
+    small_tally = align_tally("small_align")
     on_cpu = run_stage2(small_sets, Stage2Config(**SMALL_S2), device="cpu")
     same_aln = len(on_gpu.alignments) == len(on_cpu.alignments) and all(
         np.array_equal(a.mat, b.mat)
@@ -4226,14 +4322,18 @@ def main(argv=None) -> int:
              for r in (on_gpu, on_cpu)]
     a_rel = abs(on_gpu.log_likelihood - on_cpu.log_likelihood) \
         / abs(on_cpu.log_likelihood)
+    columns = list(dp_rows[0])
     phase("small_align", seconds=round(time.time() - t, 3),
+          kernel=dict(columns=columns,
+                      rows=[[r[k] for k in columns] for r in dp_rows],
+                      registers=profile_align.library()
+                      .profile_dp_num_regs()),
           dyadic=dict(columns=["L1", "L2", "pairs", "identical"],
                       rows=dyadic),
-          step_ms_at_256=step_ms, plan_cache=cache,
           last_wave=dict(columns=["L1", "L2", "pairs", "pointers_differ",
-                                  "pointers", "scores_differ",
+                                  "grid_pointers", "scores_differ",
                                   "score_max_abs_diff"], rows=wave),
-          stage2_families=len(small_sets),
+          stage2_families=len(small_sets), align=small_tally,
           identical_alignments=same_aln, rf_gpu_vs_cpu=a_rf,
           ll_gpu=on_gpu.log_likelihood, ll_cpu=on_cpu.log_likelihood,
           ll_rel=a_rel, supports_gpu=a_sup[0], supports_cpu=a_sup[1])
@@ -4254,35 +4354,31 @@ def main(argv=None) -> int:
     port_log.addHandler(msgs)
     torch.cuda.synchronize()
     pruning.reset_launch_counts()
-    reset_align_counts()
-    reset_graph_counts()
+    reset_align()
     t = time.time()
     res = run_stage2(sets, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = dict(pruning.LAUNCHES)
+    launches = dict(pruning.LAUNCHES, **profile_align.LAUNCHES)
     planning = dict(pruning.PLANNING)
-    align = dict(ALIGN, **GRAPHS)
+    align = align_tally("stage2")
     port_log.removeHandler(msgs)
     search = [m for m in msgs.lines if m.startswith(("ml_tree", "support"))]
     spr_sweeps = [m for m in search if m.startswith("ml_tree: SPR sweep")]
     rf = rf_distance(res.full_tree, truth)
     sup = [v for v in res.tree.support if v == v]
-    plans_left = len(profile_align._PLANS)
     checks = path_checks(res, STAGE2_REPS, cfg.seed, dev)
     phase("stage2", seconds=round(wall, 3), timings=res.timings,
           align=align, families_in=len(sets),
           families_kept=res.concat.n_genes, trimmed_columns=res.concat.length,
           gamma_alpha=res.gamma_alpha, log_likelihood=res.log_likelihood,
-          plans_left_after_align=plans_left, rf_vs_generating_tree=rf,
+          rf_vs_generating_tree=rf,
           n_internal_edges=len(bipartitions(res.full_tree,
                                             taxon_index(taxa))),
           supports=sup, launches=launches, planning=planning,
           search=search, **checks)
     if not np.isfinite(res.log_likelihood):
         fail("the log-likelihood is not finite")
-    if plans_left:
-        fail(f"run_stage2 left {plans_left} DP plans cached after alignment")
     if sorted(res.full_tree.leaf_labels()) != sorted(taxa):
         fail("full tree does not have the dataset's taxa")
     if rf > N_TAXA - 3:
@@ -4383,6 +4479,16 @@ def main(argv=None) -> int:
                         note="not a TPU kernel (XLA scan in the reference)",
                         launches=p_launches["hmm"], launches_nt=nt_l["hmm"],
                         **h["entry"], library_ms=None))
+    kernels.append(dict(
+        name="profile_dp", route="cuda",
+        source="pepr_tpu_torch/csrc/profile_dp.cu",
+        replaces="pepr_tpu/ops/profile_align.py:38",
+        note="not a TPU kernel (XLA lax.scan in the reference, :157)",
+        launches=p_launches["profile_dp"],
+        launches_nt=nt_l["profile_dp"],
+        max_abs_err=max(r["max_abs_err"] for r in dp_rows), tol=0.0,
+        **{k: nt_dp[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        shape=nt_dp["shape"], library_ms=None))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,7 +38,6 @@ from pepr_tpu_torch.ops.hmm import (ProfileHMM, build_profile_hmm,
                                     profile_score_pairs)
 from pepr_tpu_torch.ops.kmer_filter import (candidate_pairs, kmer_profiles,
                                             seed_candidates)
-from pepr_tpu_torch.ops.profile_align import release_plans
 from pepr_tpu_torch.pipeline.checkpoint import check_deadline
 
 log = logging.getLogger("pepr_tpu_torch")
@@ -124,7 +123,6 @@ def enhance_homolog_groups(hg_sets: list[SequenceSet],
             ckpt_key="hmm_align_chunk", device=dev)
         if store is not None:
             store.save("hmm_group_alignments", mats)
-    release_plans()  # the DP's cached plans; the scorer needs no more
     log.info("enhancer: %d group alignments ready", len(mats))
     check_deadline(deadline, "group alignment")
     hmms: list[ProfileHMM] = []

@@ -8,7 +8,10 @@ through the batched affine-NW wavefront (`ops/profile_align.py`).
 `align_families` schedules merges across many gene families in
 level-synchronous waves, so the device sees full batches of same-bucket
 DP problems; every call of a wave is launched before the host walks the
-first call's pointers, so the tracebacks overlap the device's DP.
+first call's pointers, so the tracebacks overlap the device's DP.  A
+call's batch is not padded (the reference pads it to a power of two, a
+compile discipline of XLA): each pair's DP depends on that pair alone,
+so the alignments are the same.
 
 Profiles stay float32 (the reference rounds them to bfloat16 for the
 TPU's host link).  Not ported: `align_families_chunked`'s checkpoint
@@ -28,25 +31,29 @@ from pepr_tpu_torch.alphabet import GAP, N_AA
 from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.io.fasta import SequenceSet
 from pepr_tpu_torch.ops.kmer_filter import kmer_profiles
-from pepr_tpu_torch.ops.profile_align import (blosum_core, nw_profile_dp,
-                                              traceback)
+from pepr_tpu_torch.ops.profile_align import LAUNCHES as DP_LAUNCHES
+from pepr_tpu_torch.ops.profile_align import (blosum_core, grid_cells,
+                                              nw_profile_dp, traceback)
 from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 
 log = logging.getLogger("pepr_tpu_torch")
 
-MIN_BATCH = 8  # smallest padded batch of a DP call
 ALIGN_CHUNK = 512  # families per slice of `align_families_chunked`
 MIN_BUCKET = 64  # smallest padded profile length of a DP call
 
 # The progressive MSA's tally, reset with `reset_align_counts`: DP calls,
-# DP steps (sum of L1 + L2 + 1), pointer bytes copied to the host, host
-# seconds in tracebacks and merges.
-ALIGN = {"calls": 0, "dp_steps": 0, "ptr_bytes": 0, "host_seconds": 0.0}
+# the DP kernel's launches among them (none on the CPU), DP steps (sum of
+# L1 + L2 + 1: the plain version's diagonals), grid cells (sum over the
+# pairs of (l1 + 1)(l2 + 1): the kernel's cells), pointer bytes copied to
+# the host, host seconds in tracebacks and merges.
+ALIGN = {"calls": 0, "launches": 0, "dp_steps": 0, "cells": 0,
+         "ptr_bytes": 0, "host_seconds": 0.0}
 
 
 def reset_align_counts() -> None:
     """Zero the tally."""
-    ALIGN.update(calls=0, dp_steps=0, ptr_bytes=0, host_seconds=0.0)
+    ALIGN.update(calls=0, launches=0, dp_steps=0, cells=0, ptr_bytes=0,
+                 host_seconds=0.0)
 
 
 def upgma(dist: np.ndarray) -> list[tuple[int, int]]:
@@ -208,19 +215,15 @@ def align_families(families: list[list[np.ndarray]], *,
         for (L1, L2), idxs in sorted(buckets.items()):
             for s0 in range(0, len(idxs), batch_size):
                 chunk = idxs[s0:s0 + batch_size]
-                # pad the batch dim to a power of two, at least
-                # MIN_BATCH: fewer shapes, so fewer CUDA graphs to
-                # capture; a DP step's time hardly depends on the batch
-                bpad = max(MIN_BATCH,
-                           int(2 ** np.ceil(np.log2(max(len(chunk), 1)))))
-                chunk = chunk + [chunk[-1]] * (bpad - len(chunk))
                 p1, l1 = _pad_profiles([profs1[k] for k in chunk], L1)
                 p2, l2 = _pad_profiles([profs2[k] for k in chunk], L2)
+                launched = DP_LAUNCHES["profile_dp"]
                 _, ptr = nw_profile_dp(
                     _to_device(p1, dev), _to_device(p2, dev),
                     _to_device(l1, dev), _to_device(l2, dev),
                     gap_open=gap_open, gap_extend=gap_extend,
                     core_matrix=core_t)
+                ALIGN["launches"] += DP_LAUNCHES["profile_dp"] - launched
                 host = torch.empty(ptr.shape, dtype=torch.uint8,
                                    pin_memory=pinned)
                 host.copy_(ptr, non_blocking=True)
@@ -230,6 +233,7 @@ def align_families(families: list[list[np.ndarray]], *,
                     done.record()
                 ALIGN["calls"] += 1
                 ALIGN["dp_steps"] += L1 + L2 + 1
+                ALIGN["cells"] += grid_cells(l1, l2)
                 ALIGN["ptr_bytes"] += host.numel()
                 calls.append((chunk, l1, l2, host, done))
 
@@ -238,11 +242,7 @@ def align_families(families: list[list[np.ndarray]], *,
                 done.synchronize()
             t0 = time.time()
             ptrs = host.numpy()  # (diagonal, batch, row)
-            seen: set[int] = set()
             for bi, k in enumerate(chunk):
-                if k in seen:  # batch padding duplicates
-                    continue
-                seen.add(k)
                 fi, ci, cj, a, b = jobs[k]
                 moves = traceback(ptrs[:, bi], int(l1[bi]), int(l2[bi]))
                 st = states[fi]

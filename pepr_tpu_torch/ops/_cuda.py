@@ -24,7 +24,7 @@ from pepr_tpu_torch.utils.libbuild import (BUILD_DIR, compile_libraries,
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("pruning", "sw", "hmm")
+SOURCES = ("pruning", "sw", "hmm", "profile_dp")
 
 
 def source_path(name: str) -> str:

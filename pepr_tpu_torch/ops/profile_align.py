@@ -3,17 +3,21 @@ the DP engine of the progressive MSA (PyTorch port of
 `pepr_tpu/ops/profile_align.py`).
 
 Profiles are (L, 20) residue-frequency columns; a column pair scores
-the expected substitution score f1' B f2.  The DP runs as an
-anti-diagonal wavefront over a batch of profile pairs and emits one
-traceback pointer per cell, which the host walks (`traceback`) to get
-the merge path.  The reference runs it as an XLA `lax.scan`, not a
-Pallas kernel, so here it is plain PyTorch: the column scores are one
-`bmm` per call, laid out skewed so that each step reads one contiguous
-diagonal, and the per-diagonal gap costs and validity masks are
-precomputed, leaving 9 elementwise ops a step.  The steps run in
-chunks of CHUNK diagonals; on the card a chunk of each (B, L1) shape is
-captured once as a CUDA graph and replayed for every chunk of every
-call of that shape (`_Plan`).
+the expected substitution score f1' B f2, one `bmm` per call
+(`column_scores`).  The DP emits one traceback pointer per cell, which
+the host walks (`traceback`) to get the merge path.  The reference runs
+it as an XLA `lax.scan` over anti-diagonals, not a Pallas kernel.  On
+the card it is the hand-written kernel `csrc/profile_dp.cu`, one launch
+a call (`profile_dp`, counted in `LAUNCHES`), built by `ops/_cuda.py`
+and loaded with `ctypes`; it walks the grid cells only, so the pointers
+off the grid are undefined.  Its plain version (`profile_dp_plain`,
+which the CPU runs and `chip_smoke.py` holds the kernel against on the
+card) follows the scan diagonal by diagonal: the column scores laid out
+skewed so that each step reads one contiguous diagonal, the
+per-diagonal gap costs and validity masks precomputed, 9 elementwise
+ops a step, the steps in chunks of CHUNK diagonals (`_Plan`).  Both do
+the same float32 operations, so they agree bit for bit on the score and
+every grid pointer.
 
 Pointer byte layout per cell: bits 0-1 = winning state of H
 (0=M diag, 1=E gap-in-profile-1, 2=F gap-in-profile-2); bit 2 = E came
@@ -25,13 +29,13 @@ transfer measure for the TPU's host link).
 
 from __future__ import annotations
 
-import time
-from collections import OrderedDict
+import ctypes
 
 import numpy as np
 import torch
 
 from pepr_tpu_torch.data.blosum62 import BLOSUM62
+from pepr_tpu_torch.ops import _cuda
 
 NEG = -1e30
 
@@ -40,18 +44,96 @@ E_OPEN_BIT, F_OPEN_BIT = 4, 8
 
 # Slots of a diagonal's state record: F, E, M (the diagonal move) and H.
 _F, _E, _M, _H = 0, 1, 2, 3
-# Share of the card's memory the cached plans (buffers and graph pools)
-# may hold together.
-PLAN_CACHE_SHARE = 0.25
-# Diagonals a chunk of the step loop runs: on the card each chunk is one
-# replay of a CUDA graph that every call of a (B, L1) plan shares,
-# whatever its L2.
+# Diagonals a chunk of the plain version's step loop runs.
 CHUNK = 48
+
+SOURCE = _cuda.source_path("profile_dp")
+
+# Launch count, bumped where the wrapper launches the kernel.
+LAUNCHES = {"profile_dp": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F32 = ctypes.c_float
+# Argument lists of the C functions (checked against the source by the
+# tests).
+ARGTYPES = {
+    "profile_dp_launch": [_P, _P, _P, _I, _I, _I, _F32, _F32, _F32, _F32,
+                          _P, _P, _P, _L, _P],
+    "profile_dp_max_rows": [],
+    "profile_dp_max_warps": [],
+    "profile_dp_scratch_bytes": [_I, _I, _I],
+    "profile_dp_num_regs": [],
+    "profile_dp_error_string": [_I],
+}
+RESTYPES = {"profile_dp_launch": _I, "profile_dp_max_rows": _I,
+            "profile_dp_max_warps": _I, "profile_dp_scratch_bytes": _L,
+            "profile_dp_num_regs": _I,
+            "profile_dp_error_string": ctypes.c_char_p}
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at first use)."""
+    global _lib
+    if _lib is None:
+        _lib = _cuda.load("profile_dp", ARGTYPES, RESTYPES)
+    return _lib
 
 
 def blosum_core(dtype=np.float32) -> np.ndarray:
     """20x20 substitution core used for profile column scores."""
     return BLOSUM62[:20, :20].astype(dtype)
+
+
+def column_scores(p1: torch.Tensor, p2: torch.Tensor,
+                  core: torch.Tensor) -> torch.Tensor:
+    """(B, L1, L2) float32 column scores s[b, i, j] = p1[b, i]' core
+    p2[b, j]: the (B, 20, L2) substitution-transformed profile 2, then a
+    batched product, as the reference's two einsums.  The kernel and the
+    plain version both take these, so their pointer ties see the same
+    scores."""
+    p2b = torch.matmul(core, p2.transpose(1, 2))
+    return torch.bmm(p1, p2b)
+
+
+def gap_costs(gap_open: float, gap_extend: float,
+              term_scale: float) -> tuple[float, float, float, float]:
+    """(go, ge, go_t, ge_t): the float32 gap costs and the terminal ones
+    (E on rows 0 and l1, F on columns 0 and l2), each the float32
+    product g * term_scale, as in the reference."""
+    go, ge = np.float32(gap_open), np.float32(gap_extend)
+    ts = np.float32(term_scale)
+    return float(go), float(ge), float(go * ts), float(ge * ts)
+
+
+def on_grid(l1, l2, L1: int, L2: int, device=None) -> torch.Tensor:
+    """(L1 + L2 + 1, B, L1 + 1) bool on `device` (default the CPU): the
+    cells of the diagonal-major pointers that lie on each pair's grid
+    (rows 0..l1, columns 0..l2), the ones the kernel writes and the
+    traceback reads."""
+    l1 = torch.as_tensor(l1, dtype=torch.int64, device=device)
+    l2 = torch.as_tensor(l2, dtype=torch.int64, device=device)
+    k = torch.arange(L1 + L2 + 1, device=device)[:, None, None]
+    i = torch.arange(L1 + 1, device=device)[None, None, :]
+    return (i <= l1[None, :, None]) & (k >= i) \
+        & (k <= i + l2[None, :, None])
+
+
+def grid_cells(l1, l2) -> int:
+    """Sum over the pairs of (l1 + 1)(l2 + 1): the cells the kernel
+    walks."""
+    l1 = np.asarray(l1, np.int64)
+    l2 = np.asarray(l2, np.int64)
+    return int(((l1 + 1) * (l2 + 1)).sum())
 
 
 class _Call:
@@ -74,7 +156,8 @@ class _Call:
 
 
 class _Plan:
-    """The buffers of one (B, L1) DP shape, and its step loop.
+    """The buffers of one (B, L1) DP shape, and the plain version's step
+    loop.
 
     The loop runs in chunks of CHUNK diagonals k0..k0 + CHUNK - 1, step
     j on diagonal k0 + j.  Step j keeps its F, E, M and H values in
@@ -88,8 +171,7 @@ class _Plan:
     columns move along the diagonal, E's rows do not).  A step is 9
     elementwise ops on these views and keeps its 4 comparison flags;
     after the chunk its pointers (packed from the flags) and H at row l1
-    go to the call.  The first chunk also sets the origin cell, so it
-    has a step loop (and a graph) of its own.
+    go to the call.  The first chunk also sets the origin cell.
     """
 
     def __init__(self, B: int, L1: int, dev: torch.device):
@@ -113,13 +195,6 @@ class _Plan:
         self.h_l1 = torch.empty((C, B, 1), **f32)
         self.rows = torch.arange(R1, device=dev)
         self.diag = torch.arange(C, device=dev)[:, None, None]
-        self.graphs = None  # (first chunk's, later chunks') CUDA graphs
-        self.pool_bytes = 0
-        # card memory the plan holds: its buffers, and (once captured)
-        # the private pools of its graphs
-        self.nbytes = sum(t.numel() * t.element_size() for t in (
-            self.sd, self.go, self.ge, self.invalid, self.x, self.flag,
-            self.ptr, self.h_l1))
 
     def _pair(self, r: int, slot: int, shifts: tuple[int, int],
               gap: int) -> torch.Tensor:
@@ -178,40 +253,15 @@ class _Plan:
                      self.row_l1.expand(CHUNK, self.B, 1), out=self.h_l1)
         self.x[:2].copy_(self.x[CHUNK:])
 
-    def capture(self) -> None:
-        """Capture `chunk` (the first one and a later one) as CUDA graphs
-        (`self.graphs`), on a side stream that waits for the work queued
-        so far (without `torch.cuda.graph`'s synchronize, garbage
-        collection and cache release).  The memory the allocator
-        reserves meanwhile is the graphs' private pools (the step
-        temporaries); it joins `nbytes`."""
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(torch.cuda.current_stream(self.dev))
-        reserved = torch.cuda.memory_reserved(self.dev)
-        graphs = []
-        with torch.cuda.stream(side):
-            for first in (True, False):
-                graphs.append(torch.cuda.CUDAGraph())
-                graphs[-1].capture_begin()
-                self.chunk(first)
-                graphs[-1].capture_end()
-        torch.cuda.current_stream(self.dev).wait_stream(side)
-        self.graphs = tuple(graphs)
-        self.pool_bytes = torch.cuda.memory_reserved(self.dev) - reserved
-        self.nbytes += self.pool_bytes
-
-    def load(self, p1, p2, l1, l2, gap_open, gap_extend, term_scale,
-             core) -> _Call:
-        """One call's inputs (`_Call`), and its rows' E gap costs and
-        row l1 in the plan."""
+    def load(self, s: torch.Tensor, l1, l2,
+             costs: tuple[float, float, float, float]) -> _Call:
+        """One call's inputs (`_Call`) from its column scores `s` (B, L1,
+        L2) and `gap_costs`, and its rows' E gap costs and row l1 in the
+        plan."""
         B, R1, dev = self.B, self.R1, self.dev
-        L2 = p2.shape[1]
+        L2 = s.shape[2]
         call = _Call(self, R1 + L2)
         Dp = call.Dp
-        # (B, 20, L2) substitution-transformed profile 2, then (B, L1, L2)
-        # column scores, as the reference's two einsums
-        p2b = torch.matmul(core, p2.transpose(1, 2))
-        s = torch.bmm(p1, p2b)
         # skew: row i shifted right by i + 1, so skew[b, i, k] holds the
         # score of cell (i, k - i) (residues i-1, k-i-1), 0 off the grid
         a = torch.nn.functional.pad(s, (1, R1 + Dp - call.D, 1, 0))
@@ -224,24 +274,22 @@ class _Plan:
         self.row_l1.copy_(l1[:, None])
         # terminal gaps (E on rows 0 and l1, F on columns 0 and l2) cost
         # the float32 product g * term_scale, as in the reference
+        go, ge, go_t, ge_t = costs
         col = Dp - 1 - torch.arange(Dp + R1 - 1, device=dev)
         f_term = (col == 0) | (col == l2[:, None])  # (B, Dp + R1 - 1)
         e_term = (self.rows == 0) | (self.rows == l1[:, None])  # (B, R1)
-        for name, g, cost in (("f_open", self.go, gap_open),
-                              ("f_ext", self.ge, gap_extend)):
-            g32 = np.float32(cost)
-            term = float(g32 * np.float32(term_scale))
-            f = torch.full((B, Dp + R1 - 1), float(g32), dtype=torch.float32,
+        for name, g, cost, term in (("f_open", self.go, go, go_t),
+                                    ("f_ext", self.ge, ge, ge_t)):
+            f = torch.full((B, Dp + R1 - 1), cost, dtype=torch.float32,
                            device=dev)
             setattr(call, name, f.masked_fill_(f_term, term))
-            g[:, self.wf:].fill_(float(g32)).masked_fill_(e_term, term)
+            g[:, self.wf:].fill_(cost).masked_fill_(e_term, term)
         return call
 
-    def run(self, call: _Call, eager: bool = False) -> None:
+    def run(self, call: _Call) -> None:
         """The step loop over `call`'s diagonals, chunk by chunk: stage
-        its scores, validity and F costs, run the chunk (a graph replay
-        once captured, unless `eager`) and copy out its pointers and H
-        at row l1."""
+        its scores, validity and F costs, run the chunk and copy out its
+        pointers and H at row l1."""
         self.x.fill_(NEG)
         C = CHUNK
         for k0 in range(0, call.Dp, C):
@@ -252,10 +300,7 @@ class _Plan:
             q0 = call.Dp - k0 - C
             self.go[:, :self.wf].copy_(call.f_open[:, q0:q0 + self.wf])
             self.ge[:, :self.wf].copy_(call.f_ext[:, q0:q0 + self.wf])
-            if self.graphs is not None and not eager:
-                self.graphs[k0 > 0].replay()
-            else:
-                self.chunk(k0 == 0)
+            self.chunk(k0 == 0)
             call.ptr[k0:k0 + C].copy_(self.ptr)
             call.h_l1[k0:k0 + C].copy_(self.h_l1)
 
@@ -265,66 +310,79 @@ class _Plan:
         return call.h_l1[l1 + l2, b, 0]
 
 
-_PLANS: OrderedDict = OrderedDict()
-
-# The plan cache's tally, reset with `reset_graph_counts`: CUDA graphs
-# captured, host seconds capturing them, plans evicted.
-GRAPHS = {"captured": 0, "capture_seconds": 0.0, "evicted": 0}
-
-
-def reset_graph_counts() -> None:
-    """Zero the tally."""
-    GRAPHS.update(captured=0, capture_seconds=0.0, evicted=0)
+def _scores(p1, p2, core_matrix) -> torch.Tensor:
+    """A call's float32 column scores on p1's device (BLOSUM62's core
+    unless `core_matrix`)."""
+    dev = p1.device
+    core = torch.as_tensor(blosum_core(), device=dev) \
+        if core_matrix is None else core_matrix.to(dev, torch.float32)
+    return column_scores(p1.to(torch.float32), p2.to(dev, torch.float32),
+                         core)
 
 
-def _admit(key, plan: _Plan, budget: int) -> None:
-    """Cache `plan` under `key`, first dropping the least recently used
-    plans while the cache would hold more than `budget` bytes."""
-    held = sum(p.nbytes for p in _PLANS.values())
-    if _PLANS and held + plan.nbytes > budget:
-        if plan.dev.type == "cuda":
-            torch.cuda.synchronize(plan.dev)  # queued calls may use them
-        while _PLANS and held + plan.nbytes > budget:
-            held -= _PLANS.popitem(last=False)[1].nbytes
-            GRAPHS["evicted"] += 1
-    _PLANS[key] = plan
+def profile_dp_plain(s: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
+                     go: float, ge: float, go_t: float, ge_t: float):
+    """The plain version of `profile_dp`, with its arguments, on s's
+    device: the step loop, which writes every cell's pointer, off the
+    grid too."""
+    l1 = l1.to(s.device, torch.int64)
+    l2 = l2.to(s.device, torch.int64)
+    plan = _Plan(s.shape[0], s.shape[1], s.device)
+    call = plan.load(s, l1, l2, (go, ge, go_t, ge_t))
+    plan.run(call)
+    return plan.score(call, l1, l2), call.ptr[:call.D]
 
 
-def release_plans() -> None:
-    """Drop every cached plan and give its card memory back to the
-    device (`pipeline/stage2.run_stage2` does so once its alignment and
-    refinement are done)."""
-    devs = {p.dev for p in _PLANS.values() if p.dev.type == "cuda"}
-    for dev in devs:
-        torch.cuda.synchronize(dev)  # queued calls may use them
-    _PLANS.clear()
-    if devs:
-        torch.cuda.empty_cache()
+def nw_profile_dp_plain(p1: torch.Tensor, p2: torch.Tensor,
+                        l1: torch.Tensor, l2: torch.Tensor,
+                        gap_open: float = 11.0, gap_extend: float = 1.0,
+                        term_scale: float = 0.5,
+                        core_matrix: torch.Tensor | None = None):
+    """The plain version of `nw_profile_dp`, on p1's device."""
+    return profile_dp_plain(_scores(p1, p2, core_matrix), l1, l2,
+                            *gap_costs(gap_open, gap_extend, term_scale))
 
 
-def _plan(B: int, L1: int, dev: torch.device) -> _Plan:
-    """The plan of a (B, L1) shape.  On the card plans are cached until
-    `release_plans` (least recently used ones dropped past
-    PLAN_CACHE_SHARE of the card's memory), and the first call of a
-    shape captures its chunk loops as CUDA graphs that every call
-    replays, once a chunk: a capture costs about two eager chunks, a
-    replay a small share of one (chip_smoke.py's small_align phase times
-    all three).  On the CPU each call gets a fresh plan and runs
-    eagerly."""
-    if dev.type != "cuda":
-        return _Plan(B, L1, dev)
-    key = (str(dev), B, L1)
-    plan = _PLANS.get(key)
-    if plan is None:
-        plan = _Plan(B, L1, dev)
-        t0 = time.time()
-        plan.capture()
-        GRAPHS["captured"] += len(plan.graphs)
-        GRAPHS["capture_seconds"] += time.time() - t0
-        total = torch.cuda.get_device_properties(dev).total_memory
-        _admit(key, plan, int(PLAN_CACHE_SHARE * total))
-    _PLANS.move_to_end(key)
-    return plan
+def profile_dp(s: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
+               go: float, ge: float, go_t: float, ge_t: float):
+    """The kernel: s (B, L1, L2) float32 column scores (`column_scores`),
+    l1 and l2 (B,) int32 lengths (at most L1 and L2), all contiguous on
+    one CUDA device, and `gap_costs`.  Returns (score (B,) float32, ptr
+    (L1 + L2 + 1, B, L1 + 1) uint8), the pointers written on each pair's
+    grid only (`on_grid`)."""
+    dev = s.device
+    for name, x in (("s", s), ("l1", l1), ("l2", l2)):
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name} must be on {dev} (a CUDA device), got "
+                             f"{x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if s.dtype != torch.float32 or s.dim() != 3:
+        raise ValueError("s must be (B, L1, L2) float32")
+    B, L1, L2 = s.shape
+    if l1.dtype != torch.int32 or l2.dtype != torch.int32 \
+            or l1.shape != (B,) or l2.shape != (B,):
+        raise ValueError("l1 and l2 must be (B,) int32")
+    if B < 1 or L1 < 1 or L2 < 1 or max(B, L1, L2) >= 1 << 31:
+        raise ValueError(f"empty or oversized call (B={B}, L1={L1}, "
+                         f"L2={L2})")
+    lib = library()
+    n_scratch = lib.profile_dp_scratch_bytes(B, L1, L2)
+    score = torch.empty(B, dtype=torch.float32, device=dev)
+    ptr = torch.empty((L1 + L2 + 1, B, L1 + 1), dtype=torch.uint8,
+                      device=dev)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    LAUNCHES["profile_dp"] += 1
+    with torch.cuda.device(dev):
+        rc = lib.profile_dp_launch(s.data_ptr(), l1.data_ptr(),
+                                   l2.data_ptr(), B, L1, L2, go, ge, go_t,
+                                   ge_t, score.data_ptr(), ptr.data_ptr(),
+                                   scratch.data_ptr(), n_scratch, stream)
+    if rc != 0:
+        raise RuntimeError(f"profile_dp launch failed: CUDA error {rc} "
+                           f"({lib.profile_dp_error_string(rc).decode()})")
+    return score, ptr
 
 
 def nw_profile_dp(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
@@ -332,19 +390,17 @@ def nw_profile_dp(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
                   gap_extend: float = 1.0, term_scale: float = 0.5,
                   core_matrix: torch.Tensor | None = None):
     """`nw_profile_batch` with the pointers diagonal-major: returns
-    (score (B,), ptr (L1+L2+1, B, L1+1) uint8)."""
-    B, L1 = p1.shape[:2]
+    (score (B,), ptr (L1+L2+1, B, L1+1) uint8).  On CUDA tensors one
+    launch of the kernel (pointers off the grid undefined); on the CPU
+    the plain version."""
+    if not p1.is_cuda:
+        return nw_profile_dp_plain(p1, p2, l1, l2, gap_open, gap_extend,
+                                   term_scale, core_matrix)
     dev = p1.device
-    core = torch.as_tensor(blosum_core(), device=dev) \
-        if core_matrix is None else core_matrix.to(dev, torch.float32)
-    l1 = l1.to(dev, torch.int64)
-    l2 = l2.to(dev, torch.int64)
-    plan = _plan(B, L1, dev)
-    call = plan.load(p1.to(torch.float32), p2.to(torch.float32), l1, l2,
-                     float(gap_open), float(gap_extend), float(term_scale),
-                     core)
-    plan.run(call)
-    return plan.score(call, l1, l2), call.ptr[:call.D]
+    return profile_dp(_scores(p1, p2, core_matrix),
+                      l1.to(dev, torch.int32).contiguous(),
+                      l2.to(dev, torch.int32).contiguous(),
+                      *gap_costs(gap_open, gap_extend, term_scale))
 
 
 def nw_profile_batch(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
@@ -363,7 +419,9 @@ def nw_profile_batch(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
 
     Returns:
       score: (B,) float32 at cell (l1, l2)
-      ptr: (B, L1+L2+1, L1+1) uint8 pointers (diag k, row i)
+      ptr: (B, L1+L2+1, L1+1) uint8 pointers (diag k, row i); on the
+          card only the cells of each pair's grid (`on_grid`) are
+          defined
     """
     score, ptr = nw_profile_dp(p1, p2, l1, l2, gap_open, gap_extend,
                                term_scale, core_matrix)

@@ -44,7 +44,6 @@ from pepr_tpu_torch.models.treebuild import (empirical_aa_freqs,
                                              ml_tree, nj_start_tree, nj_tree,
                                              parsimony_tree)
 from pepr_tpu_torch.ops.likelihood import WagModel
-from pepr_tpu_torch.ops.profile_align import release_plans
 from pepr_tpu_torch.ops.trim import gblocks_mask
 from pepr_tpu_torch.pipeline.checkpoint import check_deadline
 from pepr_tpu_torch.tree import parse_newick, to_newick
@@ -168,8 +167,6 @@ def run_stage2(sets: list[SequenceSet], cfg: Stage2Config | None = None,
                                           device=dev, **nt_kw)
             log.info("stage2: MSA refinement improved %d/%d families",
                      n_imp, len(mats))
-        release_plans()  # the DP's cached plans; the tree stage needs
-        # the room
         alignments = [Alignment(s.name, list(s.taxa), m,
                                 titles=list(s.titles))
                       for s, m in zip(kept, mats)]

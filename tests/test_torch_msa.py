@@ -230,7 +230,7 @@ def test_align_agreement_on_12_row_families():
 
 def test_align_tally_chunked_and_single_family_entry_points(small_families):
     tmsa.reset_align_counts()
-    tpa.reset_graph_counts()
+    tpa.reset_launch_counts()
     got = tmsa.align_families_chunked(small_families, chunk=4, device="cpu")
     want = tmsa.align_families(small_families, device="cpu")
     for g, w in zip(got, want):
@@ -245,36 +245,12 @@ def test_align_tally_chunked_and_single_family_entry_points(small_families):
         np.testing.assert_array_equal(a.mat, w)
     tally = dict(tmsa.ALIGN)
     assert tally["calls"] > 0 and tally["dp_steps"] > tally["calls"]
+    assert tally["cells"] > tally["dp_steps"]
     assert tally["ptr_bytes"] > 0 and tally["host_seconds"] > 0
-    assert tpa.GRAPHS["captured"] == 0  # no CUDA graph on the CPU
+    # no kernel launch on the CPU
+    assert tally["launches"] == 0 == tpa.LAUNCHES["profile_dp"]
     tmsa.reset_align_counts()
     assert all(v == 0 for v in tmsa.ALIGN.values())
-
-
-def test_plan_cache_evicts_least_recently_used_and_releases():
-    cpu = torch.device("cpu")
-    plans = {k: tpa._Plan(2, L1, cpu) for k, L1 in
-             (("a", 64), ("b", 128), ("c", 64))}
-    size = plans["a"].nbytes
-    assert plans["b"].nbytes > size == plans["c"].nbytes
-    tpa.release_plans()
-    tpa.reset_graph_counts()
-    try:
-        tpa._admit("a", plans["a"], 3 * size)
-        tpa._admit("b", plans["b"], 3 * size)
-        assert list(tpa._PLANS) == ["a", "b"]
-        tpa._PLANS.move_to_end("a")  # a used after b
-        # c fits only once the least recently used plan (b) is gone
-        tpa._admit("c", plans["c"], 3 * size)
-        assert list(tpa._PLANS) == ["a", "c"] and tpa.GRAPHS["evicted"] == 1
-        # a budget below one plan keeps the newest alone
-        tpa._admit("b", plans["b"], size)
-        assert list(tpa._PLANS) == ["b"] and tpa.GRAPHS["evicted"] == 3
-    finally:
-        tpa.release_plans()
-    assert not tpa._PLANS
-    tpa.reset_graph_counts()
-    assert all(v == 0 for v in tpa.GRAPHS.values())
 
 
 @pytest.fixture
@@ -292,23 +268,10 @@ def test_nw_profile_batch_card_equals_cpu(cuda_device):
     host = [torch.as_tensor(x) for x in (dyadic(rng, 16, 128, l1),
                                          dyadic(rng, 16, 256, l2), l1, l2)]
     s_c, p_c = tpa.nw_profile_batch(*host)
-    for _ in range(2):  # capture, then replay
-        s_g, p_g = tpa.nw_profile_batch(*(x.to(cuda_device) for x in host))
-        assert torch.equal(s_g.cpu(), s_c) and torch.equal(p_g.cpu(), p_c)
-
-
-@pytest.mark.cuda
-def test_release_plans_gives_back_the_memory(cuda_device):
-    rng = np.random.default_rng(12)
-    tpa.release_plans()
-    lens = rng.integers(32, 64, size=8)
-    prof = torch.as_tensor(dyadic(rng, 8, 64, lens), device=cuda_device)
-    n = torch.as_tensor(lens, device=cuda_device)
-    tpa.nw_profile_batch(prof, prof, n, n)
-    (plan,) = tpa._PLANS.values()
-    buffers = plan.nbytes - plan.pool_bytes
-    del plan
-    allocated = torch.cuda.memory_allocated(cuda_device)
-    tpa.release_plans()
-    assert not tpa._PLANS
-    assert allocated - torch.cuda.memory_allocated(cuda_device) >= buffers
+    # the kernel writes the pointers of each pair's grid only
+    grid = tpa.on_grid(l1, l2, 128, 256).permute(1, 0, 2)
+    tpa.reset_launch_counts()
+    s_g, p_g = tpa.nw_profile_batch(*(x.to(cuda_device) for x in host))
+    assert tpa.LAUNCHES == {"profile_dp": 1}
+    assert torch.equal(s_g.cpu(), s_c)
+    assert torch.equal(p_g.cpu()[grid], p_c[grid])

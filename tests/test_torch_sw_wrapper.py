@@ -33,7 +33,7 @@ def test_sw_launcher_matches_declared_argtypes():
 
 
 def test_sw_build_command_and_source():
-    assert set(_cuda.SOURCES) == {"pruning", "sw", "hmm"}
+    assert set(_cuda.SOURCES) == {"pruning", "sw", "hmm", "profile_dp"}
     cmd = _cuda.nvcc_command("nvcc", sw.SOURCE, "/x/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and cmd[-1] == sw.SOURCE
     src = open(sw.SOURCE).read()
