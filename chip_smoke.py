@@ -61,9 +61,10 @@ Phases, each printing one JSON line with the elapsed seconds:
            enhancer's prefilter pairs, scored pairs by bucket, padded and
            real DP cells and its sub-phase seconds (alignment, prefilter,
            scoring) and the MSA tally (ALIGN: DP calls, the DP kernel's
-           launches, grid cells, pointer bytes, host seconds; reset just
-           before) are printed; the DP kernel's launches must equal the
-           run's DP calls
+           launches, grid cells, pointer and path bytes, traceback and
+           merge seconds, the kernel's ms by bucket; reset just before)
+           are printed; the DP kernel's launches must equal the run's DP
+           calls, and no pointer may reach the host's walk
   hmm_kernel  the HMM kernel against its plain PyTorch version on the
            stage1_hmm run's own pairs: up to HMM_CHECK_PAIRS a reference
            (lpad, mpad) bucket, Forward and Viterbi, within HMM_ATOL +
@@ -108,12 +109,14 @@ Phases, each printing one JSON line with the elapsed seconds:
            bit-identical
   small    run_stage2_aligned on a small input on the card and on the
            CPU (plain path): same topology and supports
-  small_align  the profile-profile DP: its kernel (csrc/profile_dp.cu)
-           against its plain version (the step loop) on the card, on the
-           same column scores, at every shape below: the scores' bits and
-           every grid pointer must be equal (0 differences), each shape's
-           kernel time beside its bound and the plain version's time (per
-           call and per DP step); the shapes: dyadic profiles (values
+  small_align  the profile-profile DP: its kernel (csrc/profile_dp.cu,
+           the DP and the walk in one launch) against its plain version
+           (the step loop, then the host walk of its pointers) on the
+           card, on the same column scores, at every shape below: the
+           scores' bits, every grid pointer, every path length and every
+           move must be equal (0 differences), each shape's kernel time
+           beside its bound and the plain DP's time (per call and per DP
+           step); the shapes: dyadic profiles (values
            k/4, exact in float32) at the 128 and 256 buckets, random
            float profiles at (256, 512) and (512, 256) with lengths well
            below the buckets, a nucleotide batch of ALIGN_NT_BATCH pairs
@@ -132,11 +135,14 @@ Phases, each printing one JSON line with the elapsed seconds:
            deletions of 1-8 residues: filter, progressive MSA, one
            refinement pass, Gblocks trim, then the tree stage; launch
            counts, the MSA tally (DP calls, the DP kernel's launches,
-           DP steps, grid cells, pointer bytes, host seconds in
-           tracebacks and merges) and the wrapper's planning tally (plans
+           DP steps, grid cells, pointer bytes walked on the host and
+           path bytes copied there, host seconds in tracebacks and in
+           merges, the kernel's ms by bucket from CUDA events around
+           each launch) and the wrapper's planning tally (plans
            made, host seconds copying `children` and planning) are reset
            just before and read just after; the run must have made an SPR
-           sweep, and launched the DP kernel once a DP call; then
+           sweep, and launched the DP kernel once a DP call, no pointer
+           walked on the host; then
            path_checks: the final tree's LL
            by the kernel within 1e-5 of the plain path, and both kernels
            against their plain versions at the run's own shapes (its full
@@ -965,17 +971,20 @@ def nt_profile_pairs(rng, B: int, L: int, lengths=ALIGN_NT_LENGTH):
             *_pad_profiles([b for _, b in pairs], L))
 
 
-def dp_bound(l1, l2) -> tuple[float, str]:
-    """Least time (ms) the card could take for the profile DP of pairs of
-    these lengths, and what sets it: each grid cell with i, j >= 1 reads
-    its 4-byte column score and each grid cell writes its pointer byte,
-    each pair reads two int32 lengths and writes a float32 score;
+def dp_bound(l1, l2, n_moves) -> tuple[float, str]:
+    """Least time (ms) the card could take for the profile DP and its
+    walk of pairs of these lengths and path lengths, and what sets it:
+    each grid cell with i, j >= 1 reads its 4-byte column score and each
+    grid cell writes its pointer byte, each move of the walk reads a
+    pointer byte and writes a path byte, each pair reads two int32
+    lengths and writes a float32 score and an int32 path length;
     DP_OPS_PER_CELL float32 operations a grid cell."""
     import numpy as np
     l1 = np.asarray(l1, np.int64)
     l2 = np.asarray(l2, np.int64)
     cells = int(((l1 + 1) * (l2 + 1)).sum())
-    n_bytes = 4 * int((l1 * l2).sum()) + cells + 12 * len(l1)
+    n_bytes = 4 * int((l1 * l2).sum()) + cells + 16 * len(l1) \
+        + 2 * int(np.asarray(n_moves, np.int64).sum())
     t_ops = DP_OPS_PER_CELL * cells / PEAK_F32_FLOPS
     t_bytes = n_bytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
@@ -984,12 +993,14 @@ def dp_bound(l1, l2) -> tuple[float, str]:
 
 def dp_check(kind: str, p1, l1, p2, l2, dev, core=None, gaps=(11.0, 1.0),
              reps: int = 5) -> dict:
-    """The profile DP kernel against its plain version on the card, on
-    one batch's column scores (`column_scores`, made once): the scores'
-    bits and every grid pointer compared (the caller fails on a
-    difference), the kernel's median time over `reps` launches beside
-    dp_bound, and the plain version timed once, per call and per DP step
-    (its diagonals, whole chunks)."""
+    """The profile DP kernel (DP and walk, one launch) against its plain
+    version on the card, on one batch's column scores (`column_scores`,
+    made once): the scores' bits and every grid pointer compared with
+    the plain DP's, every path length and move with the plain walk's of
+    the plain pointers (the caller fails on a difference); the kernel's
+    median time over `reps` launches beside dp_bound, and the plain DP
+    timed once, per call and per DP step (its diagonals, whole
+    chunks)."""
     import numpy as np
     import torch
     from pepr_tpu_torch.ops import profile_align as pa
@@ -1000,19 +1011,31 @@ def dp_check(kind: str, p1, l1, p2, l2, dev, core=None, gaps=(11.0, 1.0),
     n1, n2 = (torch.as_tensor(np.asarray(x), dtype=torch.int32, device=dev)
               for x in (l1, l2))
     costs = pa.gap_costs(gaps[0], gaps[1], 0.5)
-    s_k, p_k = pa.profile_dp(s, n1, n2, *costs)
+    s_k, p_k, q_k, n_k = pa.profile_dp(s, n1, n2, *costs)
     ms = time_ms(lambda: pa.profile_dp(s, n1, n2, *costs), reps)
     (s_p, p_p), plain_ms = timed(
         lambda: pa.profile_dp_plain(s, n1, n2, *costs))
     B, L1, L2 = s.shape
     grid = pa.on_grid(l1, l2, L1, L2, dev)
-    bound, by = dp_bound(l1, l2)
+    pointers_differ = int(((p_k != p_p) & grid).sum())
+    del p_k
+    q_p, n_p = pa.traceback_paths(p_p.cpu(), l1, l2)
+    del p_p, grid
+    q_k, n_k = q_k.cpu(), n_k.cpu()
+    Lp = L1 + L2
+    moves_differ = sum(
+        int((q_k[b, Lp - int(n_p[b]):] != q_p[b, Lp - int(n_p[b]):]).sum())
+        for b in range(B))
+    bound, by = dp_bound(l1, l2, n_p.numpy())
     steps = -(-(L1 + L2 + 1) // pa.CHUNK) * pa.CHUNK
     return dict(kind=kind, shape=[B, L1, L2], cells=pa.grid_cells(l1, l2),
-                pointers=int(grid.sum()),
-                pointers_differ=int(((p_k != p_p) & grid).sum()),
+                pointers=pa.grid_cells(l1, l2),
+                pointers_differ=pointers_differ,
                 scores_differ=int((s_k.view(torch.int32)
                                    != s_p.view(torch.int32)).sum()),
+                moves=int(n_p.sum()),
+                path_lengths_differ=int((n_k != n_p).sum()),
+                moves_differ=moves_differ,
                 max_abs_err=float((s_k - s_p).abs().max()), ms=ms,
                 bound_ms=bound, bound_by=by, plain_ms=plain_ms,
                 plain_step_ms=plain_ms / steps)
@@ -1101,11 +1124,15 @@ def align_tally(where: str, dev="cuda") -> dict:
     from pepr_tpu_torch.ops import profile_align
     align = dict(ALIGN)
     n = profile_align.LAUNCHES["profile_dp"]
-    want = align["calls"] if torch.device(dev).type == "cuda" else 0
+    card = torch.device(dev).type == "cuda"
+    want = align["calls"] if card else 0
     if not n == align["launches"] == want:
         fail(f"{where}: the profile DP kernel made {n} launches "
              f"({align['launches']} in the MSA tally) for {align['calls']} "
              f"DP calls on {dev}")
+    if card and (align["ptr_bytes"] or align["traceback_seconds"]):
+        fail(f"{where}: pointers reached the host's walk on the card "
+             f"({align['ptr_bytes']} bytes)")
     return align
 
 
@@ -4281,7 +4308,8 @@ def main(argv=None) -> int:
     for _, arrs in wave_in:
         dp_rows.append(dp_check("last_wave", *arrs, dev))
     for r in dp_rows:
-        if r["pointers_differ"] or r["scores_differ"]:
+        if r["pointers_differ"] or r["scores_differ"] \
+                or r["path_lengths_differ"] or r["moves_differ"]:
             fail(f"the profile DP kernel disagrees with its plain version: "
                  f"{r}")
 
@@ -4326,8 +4354,9 @@ def main(argv=None) -> int:
     phase("small_align", seconds=round(time.time() - t, 3),
           kernel=dict(columns=columns,
                       rows=[[r[k] for k in columns] for r in dp_rows],
-                      registers=profile_align.library()
-                      .profile_dp_num_regs()),
+                      registers={k: profile_align.library()
+                                 .profile_dp_num_regs(int(k == "shared"))
+                                 for k in ("shared", "global")}),
           dyadic=dict(columns=["L1", "L2", "pairs", "identical"],
                       rows=dyadic),
           last_wave=dict(columns=["L1", "L2", "pairs", "pointers_differ",

@@ -7,15 +7,18 @@ hashed k-mer cosine distances, then postorder profile-profile merges
 through the batched affine-NW wavefront (`ops/profile_align.py`).
 `align_families` schedules merges across many gene families in
 level-synchronous waves, so the device sees full batches of same-bucket
-DP problems; every call of a wave is launched before the host walks the
-first call's pointers, so the tracebacks overlap the device's DP.  A
+DP problems.  A DP call returns paths, one byte a move
+(`nw_profile_path`): on the card its kernel walks the pointers in the
+same launch, and only the paths reach the host (the reference copies
+the pointers and walks them on the host, a discipline of the TPU's
+host link); every call of a wave is launched before the host merges
+the first call's paths, so the merges overlap the device's DP.  A
 call's batch is not padded (the reference pads it to a power of two, a
 compile discipline of XLA): each pair's DP depends on that pair alone,
 so the alignments are the same.
 
 Profiles stay float32 (the reference rounds them to bfloat16 for the
-TPU's host link).  Not ported: `align_families_chunked`'s checkpoint
-store and deadline.
+TPU's host link).
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from pepr_tpu_torch.device import resolve_device
 from pepr_tpu_torch.io.fasta import SequenceSet
 from pepr_tpu_torch.ops.kmer_filter import kmer_profiles
 from pepr_tpu_torch.ops.profile_align import LAUNCHES as DP_LAUNCHES
-from pepr_tpu_torch.ops.profile_align import (blosum_core, grid_cells,
-                                              nw_profile_dp, traceback)
+from pepr_tpu_torch.ops.profile_align import (MOVES, PLAIN_WALK,
+                                              blosum_core, grid_cells,
+                                              nw_profile_path)
 from pepr_tpu_torch.pipeline.checkpoint import Incomplete
 
 log = logging.getLogger("pepr_tpu_torch")
@@ -44,16 +48,21 @@ MIN_BUCKET = 64  # smallest padded profile length of a DP call
 # The progressive MSA's tally, reset with `reset_align_counts`: DP calls,
 # the DP kernel's launches among them (none on the CPU), DP steps (sum of
 # L1 + L2 + 1: the plain version's diagonals), grid cells (sum over the
-# pairs of (l1 + 1)(l2 + 1): the kernel's cells), pointer bytes copied to
-# the host, host seconds in tracebacks and merges.
+# pairs of (l1 + 1)(l2 + 1): the kernel's cells), pointer bytes walked on
+# the host and its seconds there (the plain walk: the CPU's route, 0 on
+# the card), path bytes handed to the host (paths and their lengths),
+# host seconds in merges, and the kernel's milliseconds on the path by
+# bucket "L1xL2" (CUDA events around each launch, read after the wave).
 ALIGN = {"calls": 0, "launches": 0, "dp_steps": 0, "cells": 0,
-         "ptr_bytes": 0, "host_seconds": 0.0}
+         "ptr_bytes": 0, "path_bytes": 0, "traceback_seconds": 0.0,
+         "merge_seconds": 0.0, "kernel_ms": {}}
 
 
 def reset_align_counts() -> None:
     """Zero the tally."""
     ALIGN.update(calls=0, launches=0, dp_steps=0, cells=0, ptr_bytes=0,
-                 host_seconds=0.0)
+                 path_bytes=0, traceback_seconds=0.0, merge_seconds=0.0,
+                 kernel_ms={})
 
 
 def upgma(dist: np.ndarray) -> list[tuple[int, int]]:
@@ -109,7 +118,9 @@ def _profile(mat: np.ndarray) -> np.ndarray:
     return prof
 
 
-def _merge(a: _Cluster, b: _Cluster, moves: list[tuple[int, int]]) -> _Cluster:
+def _merge(a: _Cluster, b: _Cluster, moves) -> _Cluster:
+    """a and b merged along `moves`, (di, dj) steps in forward order (a
+    list or an (n, 2) array)."""
     La, Lb = a.mat.shape[1], b.mat.shape[1]
     mv = np.asarray(moves, dtype=np.int64).reshape(-1, 2)
     cols = mv.shape[0]
@@ -209,8 +220,8 @@ def align_families(families: list[list[np.ndarray]], *,
         for k, (pa, pb) in enumerate(zip(profs1, profs2)):
             buckets.setdefault((pl(pa), pl(pb)), []).append(k)
 
-        # launch every call of the wave, each followed by its pointers'
-        # copy to the host; then walk them in launch order
+        # launch every call of the wave, each followed by its paths' copy
+        # to the host; then merge them in launch order
         calls = []
         for (L1, L2), idxs in sorted(buckets.items()):
             for s0 in range(0, len(idxs), batch_size):
@@ -218,40 +229,52 @@ def align_families(families: list[list[np.ndarray]], *,
                 p1, l1 = _pad_profiles([profs1[k] for k in chunk], L1)
                 p2, l2 = _pad_profiles([profs2[k] for k in chunk], L2)
                 launched = DP_LAUNCHES["profile_dp"]
-                _, ptr = nw_profile_dp(
+                walked = dict(PLAIN_WALK)
+                events = [] if pinned else None
+                _, path, path_len = nw_profile_path(
                     _to_device(p1, dev), _to_device(p2, dev),
                     _to_device(l1, dev), _to_device(l2, dev),
                     gap_open=gap_open, gap_extend=gap_extend,
-                    core_matrix=core_t)
+                    core_matrix=core_t, events=events)
                 ALIGN["launches"] += DP_LAUNCHES["profile_dp"] - launched
-                host = torch.empty(ptr.shape, dtype=torch.uint8,
-                                   pin_memory=pinned)
-                host.copy_(ptr, non_blocking=True)
-                done = None
+                ALIGN["ptr_bytes"] += PLAIN_WALK["ptr_bytes"] \
+                    - walked["ptr_bytes"]
+                ALIGN["traceback_seconds"] += PLAIN_WALK["seconds"] \
+                    - walked["seconds"]
+                host, done = [path, path_len], None
                 if pinned:
+                    host = [torch.empty(x.shape, dtype=x.dtype,
+                                        pin_memory=True).copy_(
+                                            x, non_blocking=True)
+                            for x in host]
                     done = torch.cuda.Event()
                     done.record()
                 ALIGN["calls"] += 1
                 ALIGN["dp_steps"] += L1 + L2 + 1
                 ALIGN["cells"] += grid_cells(l1, l2)
-                ALIGN["ptr_bytes"] += host.numel()
-                calls.append((chunk, l1, l2, host, done))
+                ALIGN["path_bytes"] += sum(x.numel() * x.element_size()
+                                           for x in host)
+                calls.append((chunk, f"{L1}x{L2}", host, done, events))
 
-        for chunk, l1, l2, host, done in calls:
+        for chunk, bucket, (path, path_len), done, events in calls:
             if done is not None:
                 done.synchronize()
+                ms = ALIGN["kernel_ms"]
+                ms[bucket] = ms.get(bucket, 0.0) + sum(
+                    a.elapsed_time(b) for a, b in events)
             t0 = time.time()
-            ptrs = host.numpy()  # (diagonal, batch, row)
+            Lp = path.shape[1]
+            moves = MOVES[path.numpy() & 3]  # (B, L1 + L2, 2): (di, dj)
+            n_moves = path_len.numpy()
             for bi, k in enumerate(chunk):
                 fi, ci, cj, a, b = jobs[k]
-                moves = traceback(ptrs[:, bi], int(l1[bi]), int(l2[bi]))
                 st = states[fi]
-                merged = _merge(a, b, moves)
+                merged = _merge(a, b, moves[bi, Lp - n_moves[bi]:])
                 del st["clusters"][ci], st["clusters"][cj]
                 new_id = len(families[fi]) + st["next"]
                 st["clusters"][new_id] = merged
                 st["next"] += 1
-            ALIGN["host_seconds"] += time.time() - t0
+            ALIGN["merge_seconds"] += time.time() - t0
 
     out: list[np.ndarray] = []
     for fi, st in enumerate(states):

@@ -4,24 +4,33 @@ the DP engine of the progressive MSA (PyTorch port of
 
 Profiles are (L, 20) residue-frequency columns; a column pair scores
 the expected substitution score f1' B f2, one `bmm` per call
-(`column_scores`).  The DP emits one traceback pointer per cell, which
-the host walks (`traceback`) to get the merge path.  The reference runs
-it as an XLA `lax.scan` over anti-diagonals, not a Pallas kernel.  On
-the card it is the hand-written kernel `csrc/profile_dp.cu`, one launch
-a call (`profile_dp`, counted in `LAUNCHES`), built by `ops/_cuda.py`
-and loaded with `ctypes`; it walks the grid cells only, so the pointers
-off the grid are undefined.  Its plain version (`profile_dp_plain`,
-which the CPU runs and `chip_smoke.py` holds the kernel against on the
-card) follows the scan diagonal by diagonal: the column scores laid out
-skewed so that each step reads one contiguous diagonal, the
-per-diagonal gap costs and validity masks precomputed, 9 elementwise
-ops a step, the steps in chunks of CHUNK diagonals (`_Plan`).  Both do
-the same float32 operations, so they agree bit for bit on the score and
-every grid pointer.
+(`column_scores`).  The DP emits one traceback pointer per cell, and a
+walk of the pointers from (l1, l2) back to (0, 0) gives the merge path
+(`traceback`'s rules).  The reference runs the DP as an XLA `lax.scan`
+over anti-diagonals, not a Pallas kernel, and walks on the host.  On
+the card both are the hand-written kernel `csrc/profile_dp.cu`, one
+launch a call (`profile_dp`, counted in `LAUNCHES`), built by
+`ops/_cuda.py` and loaded with `ctypes`: it walks the grid cells only
+(the pointers off the grid are undefined) and then the path, so the
+main path's entry (`nw_profile_path`) hands the host paths, one byte a
+move, and never the pointers.  The plain version (which the CPU runs
+and `chip_smoke.py` holds the kernel against on the card) is the DP
+`profile_dp_plain` and the walk `traceback_paths` (`traceback`, pair by
+pair, encoded as the kernel encodes).  The DP follows the scan diagonal
+by diagonal: the column scores laid out skewed so that each step reads
+one contiguous diagonal, the per-diagonal gap costs and validity masks
+precomputed, 9 elementwise ops a step, the steps in chunks of CHUNK
+diagonals (`_Plan`).  Kernel and plain version do the same float32
+operations, so they agree bit for bit on the score, every grid pointer
+and the path.
 
 Pointer byte layout per cell: bits 0-1 = winning state of H
 (0=M diag, 1=E gap-in-profile-1, 2=F gap-in-profile-2); bit 2 = E came
-from gap-open (else extend); bit 3 = F came from gap-open.
+from gap-open (else extend); bit 3 = F came from gap-open.  Path byte:
+bit 0 (MOVE_I) the move consumes a column of profile 1, bit 1 (MOVE_J)
+one of profile 2; a call's paths are (B, L1 + L2) uint8 with pair b's
+moves in forward order in its last path_len[b] bytes (`MOVES` decodes
+them to (di, dj)).
 
 Left out: the reference's `packed=` pointers and `unpack_ptrs` (a
 transfer measure for the TPU's host link).
@@ -30,6 +39,7 @@ transfer measure for the TPU's host link).
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -41,6 +51,10 @@ NEG = -1e30
 
 PTR_M, PTR_E, PTR_F = 0, 1, 2
 E_OPEN_BIT, F_OPEN_BIT = 4, 8
+# Path byte: the move consumes profile 1 (MOVE_I), profile 2 (MOVE_J).
+MOVE_I, MOVE_J = 1, 2
+# (di, dj) of each path byte value (the byte & 3)
+MOVES = np.array([[0, 0], [1, 0], [0, 1], [1, 1]], dtype=np.int64)
 
 # Slots of a diagonal's state record: F, E, M (the diagonal move) and H.
 _F, _E, _M, _H = 0, 1, 2, 3
@@ -51,6 +65,10 @@ SOURCE = _cuda.source_path("profile_dp")
 
 # Launch count, bumped where the wrapper launches the kernel.
 LAUNCHES = {"profile_dp": 0}
+# The plain walk's tally (`traceback_paths`, the CPU's route): calls,
+# the pointer bytes it walked on the host and its seconds.  On the card
+# nothing reaches it.
+PLAIN_WALK = {"calls": 0, "ptr_bytes": 0, "seconds": 0.0}
 
 
 def reset_launch_counts() -> None:
@@ -66,16 +84,16 @@ _F32 = ctypes.c_float
 # tests).
 ARGTYPES = {
     "profile_dp_launch": [_P, _P, _P, _I, _I, _I, _F32, _F32, _F32, _F32,
-                          _P, _P, _P, _L, _P],
-    "profile_dp_max_rows": [],
-    "profile_dp_max_warps": [],
+                          _P, _P, _P, _P, _P, _L, _P],
+    "profile_dp_plan": [_I, _I, _P],
     "profile_dp_scratch_bytes": [_I, _I, _I],
-    "profile_dp_num_regs": [],
+    "profile_dp_num_regs": [_I],
+    "profile_dp_stamps": [_P, _I],
     "profile_dp_error_string": [_I],
 }
-RESTYPES = {"profile_dp_launch": _I, "profile_dp_max_rows": _I,
-            "profile_dp_max_warps": _I, "profile_dp_scratch_bytes": _L,
-            "profile_dp_num_regs": _I,
+RESTYPES = {"profile_dp_launch": _I, "profile_dp_plan": _I,
+            "profile_dp_scratch_bytes": _L, "profile_dp_num_regs": _I,
+            "profile_dp_stamps": _I,
             "profile_dp_error_string": ctypes.c_char_p}
 
 _lib = None
@@ -344,12 +362,16 @@ def nw_profile_dp_plain(p1: torch.Tensor, p2: torch.Tensor,
 
 
 def profile_dp(s: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
-               go: float, ge: float, go_t: float, ge_t: float):
+               go: float, ge: float, go_t: float, ge_t: float,
+               events: list | None = None):
     """The kernel: s (B, L1, L2) float32 column scores (`column_scores`),
     l1 and l2 (B,) int32 lengths (at most L1 and L2), all contiguous on
     one CUDA device, and `gap_costs`.  Returns (score (B,) float32, ptr
-    (L1 + L2 + 1, B, L1 + 1) uint8), the pointers written on each pair's
-    grid only (`on_grid`)."""
+    (L1 + L2 + 1, B, L1 + 1) uint8, path (B, L1 + L2) uint8, path_len
+    (B,) int32): the pointers written on each pair's grid only
+    (`on_grid`), pair b's moves in path[b, L1 + L2 - path_len[b]:].
+    With `events`, appends a (start, end) pair of CUDA events recorded
+    around the launch."""
     dev = s.device
     for name, x in (("s", s), ("l1", l1), ("l2", l2)):
         if x.device != dev or x.device.type != "cuda":
@@ -371,18 +393,38 @@ def profile_dp(s: torch.Tensor, l1: torch.Tensor, l2: torch.Tensor,
     score = torch.empty(B, dtype=torch.float32, device=dev)
     ptr = torch.empty((L1 + L2 + 1, B, L1 + 1), dtype=torch.uint8,
                       device=dev)
+    path = torch.empty((B, L1 + L2), dtype=torch.uint8, device=dev)
+    path_len = torch.empty(B, dtype=torch.int32, device=dev)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     LAUNCHES["profile_dp"] += 1
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev)
+        if events is not None:
+            events.append((torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True)))
+            events[-1][0].record(stream)
         rc = lib.profile_dp_launch(s.data_ptr(), l1.data_ptr(),
                                    l2.data_ptr(), B, L1, L2, go, ge, go_t,
                                    ge_t, score.data_ptr(), ptr.data_ptr(),
-                                   scratch.data_ptr(), n_scratch, stream)
+                                   path.data_ptr(), path_len.data_ptr(),
+                                   scratch.data_ptr(), n_scratch,
+                                   stream.cuda_stream)
+        if events is not None:
+            events[-1][1].record(stream)
     if rc != 0:
         raise RuntimeError(f"profile_dp launch failed: CUDA error {rc} "
                            f"({lib.profile_dp_error_string(rc).decode()})")
-    return score, ptr
+    return score, ptr, path, path_len
+
+
+def _card_args(p1, p2, l1, l2, gap_open, gap_extend, term_scale,
+               core_matrix) -> tuple:
+    """`profile_dp`'s arguments for profiles on the card."""
+    dev = p1.device
+    return (_scores(p1, p2, core_matrix),
+            l1.to(dev, torch.int32).contiguous(),
+            l2.to(dev, torch.int32).contiguous(),
+            *gap_costs(gap_open, gap_extend, term_scale))
 
 
 def nw_profile_dp(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
@@ -396,11 +438,30 @@ def nw_profile_dp(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
     if not p1.is_cuda:
         return nw_profile_dp_plain(p1, p2, l1, l2, gap_open, gap_extend,
                                    term_scale, core_matrix)
-    dev = p1.device
-    return profile_dp(_scores(p1, p2, core_matrix),
-                      l1.to(dev, torch.int32).contiguous(),
-                      l2.to(dev, torch.int32).contiguous(),
-                      *gap_costs(gap_open, gap_extend, term_scale))
+    return profile_dp(*_card_args(p1, p2, l1, l2, gap_open, gap_extend,
+                                  term_scale, core_matrix))[:2]
+
+
+def nw_profile_path(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
+                    l2: torch.Tensor, gap_open: float = 11.0,
+                    gap_extend: float = 1.0, term_scale: float = 0.5,
+                    core_matrix: torch.Tensor | None = None,
+                    events: list | None = None):
+    """The MSA's entry: (score (B,), path (B, L1 + L2) uint8, path_len
+    (B,) int32), pair b's moves in path[b, L1 + L2 - path_len[b]:].  On
+    CUDA tensors one launch of the kernel, DP and walk (the pointers
+    stay on the card and are freed with the call; `events` as in
+    `profile_dp`); on the CPU the plain DP and the plain walk
+    (`traceback_paths`)."""
+    if not p1.is_cuda:
+        score, ptr = nw_profile_dp_plain(p1, p2, l1, l2, gap_open,
+                                         gap_extend, term_scale,
+                                         core_matrix)
+        return (score, *traceback_paths(ptr, l1, l2))
+    score, _, path, path_len = profile_dp(
+        *_card_args(p1, p2, l1, l2, gap_open, gap_extend, term_scale,
+                    core_matrix), events=events)
+    return score, path, path_len
 
 
 def nw_profile_batch(p1: torch.Tensor, p2: torch.Tensor, l1: torch.Tensor,
@@ -465,6 +526,39 @@ def traceback(ptr: np.ndarray, l1: int, l2: int) -> list[tuple[int, int]]:
             if from_open:
                 state = int(ptr[i + j, i]) & 3
     return moves[::-1]
+
+
+def encode_moves(moves: list[tuple[int, int]]) -> np.ndarray:
+    """`traceback`'s (di, dj) moves as path bytes (di | dj << 1)."""
+    mv = np.asarray(moves, dtype=np.uint8).reshape(-1, 2)
+    return mv[:, 0] | (mv[:, 1] << 1)
+
+
+def traceback_paths(ptr: torch.Tensor, l1, l2):
+    """The plain version of the kernel's walk, on the host: `traceback`
+    of each pair of the diagonal-major pointers ptr (L1 + L2 + 1, B, L1
+    + 1), encoded.  Returns (path (B, L1 + L2) uint8, zero before each
+    pair's moves, path_len (B,) int32).  Refuses CUDA tensors: on the
+    card the kernel walks."""
+    if ptr.is_cuda:
+        raise ValueError("traceback_paths walks host pointers; on the card "
+                         "the kernel walks")
+    t0 = time.time()
+    D, B, R1 = ptr.shape
+    Lp = D - 1
+    host = ptr.numpy()
+    l1 = np.asarray(l1, np.int64)
+    l2 = np.asarray(l2, np.int64)
+    path = np.zeros((B, Lp), np.uint8)
+    path_len = np.zeros(B, np.int32)
+    for b in range(B):
+        code = encode_moves(traceback(host[:, b], int(l1[b]), int(l2[b])))
+        path_len[b] = len(code)
+        path[b, Lp - len(code):] = code
+    PLAIN_WALK["calls"] += 1
+    PLAIN_WALK["ptr_bytes"] += ptr.numel()
+    PLAIN_WALK["seconds"] += time.time() - t0
+    return torch.from_numpy(path), torch.from_numpy(path_len)
 
 
 def nw_profile_numpy(p1: np.ndarray, p2: np.ndarray, gap_open=11.0,

@@ -144,6 +144,40 @@ def test_traceback_moves_identical():
         assert sum(m[1] for m in got) == l2[b]
 
 
+@pytest.mark.parametrize("core", ["blosum", "nt"])
+def test_nw_profile_path_equals_traceback_of_batch_pointers(core):
+    """The MSA's entry on the CPU (the plain DP, then the plain walk):
+    its scores are `nw_profile_batch`'s, and each pair's path bytes,
+    decoded, the moves that `traceback` (and the JAX package's) finds
+    in `nw_profile_batch`'s pointers; terminal-gap pairs and l2 = 0
+    included."""
+    rng = np.random.default_rng(12 + (core == "nt"))
+    B, L1, L2 = 7, 64, 128
+    l1 = rng.integers(1, L1 + 1, size=B).astype(np.int32)
+    l2 = rng.integers(0, L2 + 1, size=B).astype(np.int32)
+    l1[0], l2[0] = 10, 120  # a long terminal gap
+    l2[1] = 0
+    n_codes = 4 if core == "nt" else 20
+    args = [torch.as_tensor(x) for x in (dyadic(rng, B, L1, l1, n_codes),
+                                         dyadic(rng, B, L2, l2, n_codes),
+                                         l1, l2)]
+    kw = {}
+    if core == "nt":
+        kw = dict(gap_open=float(NT_GAP_OPEN), gap_extend=float(NT_GAP_EXTEND),
+                  core_matrix=torch.as_tensor(nt_core()))
+    s_b, ptr = tpa.nw_profile_batch(*args, **kw)
+    s_p, path, path_len = tpa.nw_profile_path(*args, **kw)
+    assert torch.equal(s_p, s_b)
+    assert path.shape == (B, L1 + L2) and path_len.shape == (B,)
+    for b in range(B):
+        want = tpa.traceback(ptr[b].numpy(), int(l1[b]), int(l2[b]))
+        assert want == jpa.traceback(ptr[b].numpy(), int(l1[b]), int(l2[b]))
+        n = int(path_len[b])
+        got = tpa.MOVES[path[b, L1 + L2 - n:].numpy()]
+        assert [tuple(m) for m in got.tolist()] == want
+        assert got[:, 0].sum() == l1[b] and got[:, 1].sum() == l2[b]
+
+
 def test_upgma_profile_merge_and_sp_score_identical():
     rng = np.random.default_rng(6)
     d = rng.random((9, 9))
@@ -246,11 +280,13 @@ def test_align_tally_chunked_and_single_family_entry_points(small_families):
     tally = dict(tmsa.ALIGN)
     assert tally["calls"] > 0 and tally["dp_steps"] > tally["calls"]
     assert tally["cells"] > tally["dp_steps"]
-    assert tally["ptr_bytes"] > 0 and tally["host_seconds"] > 0
+    assert tally["ptr_bytes"] > 0 and tally["path_bytes"] > 0
+    assert tally["traceback_seconds"] > 0 and tally["merge_seconds"] > 0
     # no kernel launch on the CPU
     assert tally["launches"] == 0 == tpa.LAUNCHES["profile_dp"]
+    assert tally["kernel_ms"] == {}
     tmsa.reset_align_counts()
-    assert all(v == 0 for v in tmsa.ALIGN.values())
+    assert all(not v for v in tmsa.ALIGN.values())
 
 
 @pytest.fixture
